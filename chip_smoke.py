@@ -16,7 +16,22 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
 5. the headline run — ``bench.py``'s problem (104³ box, p=4, RK4, fp32,
    72.5M DOF, 101 steps) through ``LinearSpectralExplicit.rk`` and its
    ``energy`` diagnostic — with launch counts, throughput, and 3 steps held
-   against the plain path.
+   against the plain path;
+6. K2 kinds lossy, westervelt and focused against their plain versions, a
+   non-final and a final stage, at (9,5,7) p=4 (constant and DG-0
+   coefficients), at the channel grids (41,1,1) and (81,1,1) and at the
+   11.47M-node HITU lattice (80,47,47) p=4, with CUDA-event timings there;
+   then the lossy and Westervelt models through ``rk`` in the 3D channel
+   against their 1D gates (damped plane wave < 1e-2, Fubini < 1e-1), fp32,
+   each followed by 3 steps held against the plain path;
+7. the slice's main path: ``drivers.hitu.run("W", "H101", "WATER")`` at the
+   driver defaults (nx=80, p=4, 0.5 MHz, fp32, 11,466,441 DOF, 3835 RK4
+   steps) through ``WesterveltSpectralFocused.rk_record``, with K2
+   ``focused`` launched 4 times per step, its focal peak held against the
+   JAX package's committed run (``benchmarks/hitu/results/w_h101_water.npz``)
+   and 3 further steps held against the unfused (K1) step;
+8. the O'Neil check of the focused source, ``drivers.hitu.validate_oneil``
+   at its defaults (H101, 0.35 MHz, nx=64, 5.7M DOF).
 
 The line before the last is one JSON object with the per-kernel numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -156,14 +171,15 @@ def phase_k1(device, card, grids, headline) -> dict:
     return out
 
 
-def _stage_inputs(grid, p, device, gen, rng, final):
-    """Random stage operands: state, slopes, inverse mass, packed facets."""
+def _stage_inputs(kind, lat, device, gen, rng, final, scale, dg0=False):
+    """Random stage operands of ``kind`` on lattice ``lat``: state, slopes,
+    dense extras (inverse mass, or m0 and a small d2), packed facets, and
+    stiffness coefficients of size ``scale`` (constant or DG-0)."""
     import torch
 
-    from fenicsxfus_tpu_torch.ops.stage import pack_facet_vector
-    from fenicsxfus_tpu_torch.ops.stiffness import pack_const
+    from fenicsxfus_tpu_torch.ops.stage import KIND_DENSE, KIND_FACET, KIND_FIELDS, pack_facet_vector
+    from fenicsxfus_tpu_torch.ops.stiffness import pack_const, pack_field
 
-    lat = _lattice(grid, p, torch.float32)
     gd = lat.gdims
 
     def field():
@@ -175,16 +191,23 @@ def _stage_inputs(grid, p, device, gen, rng, final):
             f[sl] = rng.uniform(0.5, 1.5, f[sl].shape)
         return {k: torch.as_tensor(v, device=device) for k, v in pack_facet_vector(f, gd).items()}
 
-    args = dict(
-        u0=field(), v0=field(), kvp=field(), kvpp=field(),
+    def coeff(c):
+        if dg0:
+            return pack_field(lat, rng.uniform(0.5, 2.0, int(np.prod(lat.grid))) * c, device)
+        return pack_const(lat, c, device)
+
+    nfa = len(KIND_FACET[kind])
+    return dict(
+        kind=kind, u0=field(), v0=field(), kvp=field(), kvpp=field(),
         prev=field() if final else None,
-        F=pack_const(lat, 1.0 / 1000.0, device),
-        inv_m=torch.rand(gd, generator=gen, device=device) + 0.5,
-        src_pf=facets(), abc_pf=facets(),
-        scal=[0.3, 0.05, 1.7] + ([1.0, 0.02, 0.03, 0.01, 0.15, 0.3, 0.3, 0.15] if final else []),
-        p=p, final=final,
+        Fs=[coeff(scale * (1.0 - 0.5 * f)) for f in range(KIND_FIELDS[kind])],
+        dense=[torch.rand(gd, generator=gen, device=device) * (0.05 if n == "d2" else 1.0)
+               + (0.0 if n == "d2" else 0.5) for n in KIND_DENSE[kind]],
+        facets=[facets() for _ in range(nfa)],
+        scal=[0.3, 0.05] + [1.7, -0.6, 0.9, 0.4][: nfa - 1]
+        + ([1.0, 0.02, 0.03, 0.01, 0.15, 0.3, 0.3, 0.15] if final else []),
+        p=lat.p, final=final,
     )
-    return args
 
 
 def phase_k2(device, card, grids, headline) -> dict:
@@ -198,7 +221,8 @@ def phase_k2(device, card, grids, headline) -> dict:
     out = {}
     for grid, p in grids:
         for final in (False, True):
-            args = _stage_inputs(grid, p, device, gen, rng, final)
+            args = _stage_inputs("linear", _lattice(grid, p, torch.float32), device, gen, rng,
+                                 final, scale=1.0 / 1000.0)
             got = stage_apply(**args)
             ref = stage_plain(**args)
             torch.cuda.synchronize()
@@ -239,7 +263,7 @@ def phase_planewave(device) -> None:
     model = ft.LinearSpectralExplicit(mesh, None, p, c0, rho0, f0, p0, c0, 4, dt,
                                       dtype=torch.float32, device=device)
     model.init()
-    before = stage_apply.launches
+    stage_apply.launches.clear()
     t0 = time.perf_counter()
     u, _, tf = model.rk(0.0, tend)
     torch.cuda.synchronize()
@@ -248,7 +272,7 @@ def phase_planewave(device) -> None:
     err = relative_l2_error(model.ops, u, lambda x: planewave(x[0], tf, c0, f0, p0))
     say(f"[4] planewave fp32: {model.step_kind} step, {nsteps} steps in {seconds:.2f} s, "
         f"rel-L2 = {err:.3e} (gate 1e-3)")
-    if model.step_kind != "fused" or stage_apply.launches - before != 4 * nsteps:
+    if model.step_kind != "fused" or dict(stage_apply.launches) != {"linear": 4 * nsteps}:
         raise AssertionError("the plane-wave run did not go through K2 once per stage")
     if not err < 1e-3:
         raise AssertionError(f"planewave rel-L2 {err:.3e} >= 1e-3")
@@ -279,21 +303,21 @@ def phase_headline(device, card, nx) -> dict:
 
     # --- the main path: counts from 0 just before, read just after
     stiffness_apply.launches = 0
-    stage_apply.launches = 0
+    stage_apply.launches.clear()
     t0 = time.perf_counter()
     u, v, t = model.rk(0.0, STEPS * dt)
     torch.cuda.synchronize()
     solve = time.perf_counter() - t0
     energy = model.energy()
     torch.cuda.synchronize()
-    launches = {"stage": stage_apply.launches, "stiffness": stiffness_apply.launches}
+    launches = {"stage": dict(stage_apply.launches), "stiffness": stiffness_apply.launches}
 
     checksum = float(u.double().abs().sum())
     rate = ndofs * nsteps / solve / 1e9
     say(f"[5] {nsteps} RK4 steps: solve {solve:.3f} s, {rate:.4f} GDOF-RK4-updates/s, "
         f"setup {setup:.1f} s ({card})")
     say(f"[5] checksum sum|u| = {checksum:.6e}, energy = {energy:.6e}, launches {launches}")
-    if model.step_kind != "fused" or launches["stage"] != 4 * nsteps:
+    if model.step_kind != "fused" or launches["stage"] != {"linear": 4 * nsteps}:
         raise AssertionError(f"headline did not run through K2 once per stage: {launches}")
     if launches["stiffness"] < 1:
         raise AssertionError("the energy diagnostic did not run through K1")
@@ -314,6 +338,203 @@ def phase_headline(device, card, nx) -> dict:
     return {"launches": launches, "rate": rate, "solve_s": solve, "setup_s": setup}
 
 
+NEW_KINDS = ("lossy", "westervelt", "focused")
+HITU_GRID = (80, 47, 47)  # drivers.hitu.build_model("W", "H101", "WATER", nx=80)
+
+
+def phase_kinds(device, card) -> dict:
+    """K2 kinds lossy, westervelt, focused against their plain versions. The
+    lattice has unit cells, so the stiffness term is of the size of the
+    facet and mass terms and a stencil fault cannot hide behind them."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
+    from fenicsxfus_tpu_torch.ops.stage import stage_apply, stage_plain
+
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(device=device).manual_seed(6)
+    out = {}
+    # (9,5,7) with both coefficient forms, the two channel grids of
+    # phase_channel (one cell across y and z: every node on two facet
+    # planes), and the HITU lattice with timings
+    cases = [((9, 5, 7), False), ((9, 5, 7), True), ((41, 1, 1), False), ((81, 1, 1), True),
+             (HITU_GRID, False)]
+    for kind in NEW_KINDS:
+        for grid, dg0 in cases:
+            lat = LatticeStiffness(grid, 4, (1.0, 1.0, 1.0), torch.float32)
+            for final in (False, True):
+                args = _stage_inputs(kind, lat, device, gen, rng, final, scale=1.0, dg0=dg0)
+                got = stage_apply(**args)
+                ref = stage_plain(**args)
+                torch.cuda.synchronize()
+                pairs = list(zip(got, ref)) if final else [(got, ref)]
+                worst = max(rel_err(a, b) for a, b in pairs)
+                stage = "final" if final else "non-final"
+                coeff = "DG-0" if dg0 else "const"
+                say(f"[6] K2 {kind} grid={grid} p=4 {coeff} {stage}: "
+                    f"max|d|/max|ref| = {worst[0]:.3e}")
+                if not worst[0] <= TOL:
+                    raise AssertionError(
+                        f"K2 {kind} disagrees with its plain version: {worst[0]:.3e} > {TOL}")
+                if grid == HITU_GRID:
+                    ms = cuda_median_ms(lambda: stage_apply(**args))
+                    pms = cuda_median_ms(lambda: stage_plain(**args))
+                    say(f"[6] K2 {kind} HITU lattice {stage}: kernel {ms:.3f} ms, plain "
+                        f"{pms:.3f} ms (median of 10, CUDA events; {card})")
+                    if not final:
+                        out[kind] = {"max_abs_err": worst[1], "rel_err": worst[0],
+                                     "ms": ms, "plain_ms": pms}
+                del args, got, ref
+                torch.cuda.synchronize()
+    return out
+
+
+def phase_channel(device) -> dict:
+    """The lossy and Westervelt models through ``rk`` in the 3D channel
+    (source at x=0, ABC at x=L: the 1D problem) against the reference's 1D
+    gates, fp32, then 3 steps from the reached state held against the plain
+    path; returns the K2 launches of each run."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+    from fenicsxfus_tpu_torch.analysis.analytical import damped_planewave, fubini
+    from fenicsxfus_tpu_torch.analysis.error import relative_l2_error
+    from fenicsxfus_tpu_torch.models.common import run_steps, step_sizes
+    from fenicsxfus_tpu_torch.ops.stage import stage_apply, stage_plain
+
+    f0, c0, u0, L = 10.0, 1.0, 1.0, 1.0
+    launches = {}
+    for kind, degree, epw, gate in (("lossy", 4, 4, 1e-2), ("westervelt", 4, 8, 1e-1)):
+        nx = int(epw * L * f0 / c0 + 1)
+        mesh = ft.create_box((nx, 1, 1), (0, 0, 0), (L, 0.1, 0.1))
+        ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > L - 1e-12})
+        h = L / nx
+        if kind == "lossy":
+            rho0, alphadB = 4.0, 5.0
+            p0 = rho0 * c0 * u0
+            alpha_np = alphadB / 20 * np.log(10)
+            delta0 = ft.compute_diffusivity_of_sound(2 * np.pi * f0, c0, alphadB)
+            dt = 0.5 * h / (c0 * degree**2)
+            tend = L / c0 + 16.0 / f0
+            model = ft.LossySpectralExplicit(mesh, None, degree, c0, rho0, delta0, f0, p0, c0,
+                                             4, dt, dtype=torch.float32, device=device)
+            exact = lambda x, t: damped_planewave(x[0], t, c0, f0, p0, alpha_np)  # noqa: E731
+        else:
+            rho0, beta0 = 1.0, 0.01
+            p0 = rho0 * c0 * u0
+            dt = 0.9 * h / (c0 * degree**2)
+            tend = L / c0 + 8.0 / f0
+            model = ft.WesterveltSpectralExplicit(mesh, None, degree, c0, rho0, 0.0, beta0, f0,
+                                                  p0, c0, 4, dt, dtype=torch.float32,
+                                                  device=device)
+            exact = lambda x, t: fubini(x[0], t, c0, f0, p0, rho0, beta0)  # noqa: E731
+        stage_apply.launches.clear()
+        t0 = time.perf_counter()
+        u, v, tf = model.rk(0.0, tend)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[kind] = dict(stage_apply.launches)
+        nsteps = len(step_sizes(0.0, tend, dt))
+        err = relative_l2_error(model.ops, u, lambda x: exact(x, tf))
+        say(f"[6] {kind} channel fp32: {model.step_kind} step, {nsteps} steps in {seconds:.2f} s, "
+            f"rel-L2 = {err:.3e} (gate {gate:g}), launches {launches[kind]}")
+        if model.step_kind != "fused" or launches[kind] != {kind: 4 * nsteps}:
+            raise AssertionError(f"the {kind} run did not go through K2 once per stage")
+        if not err < gate:
+            raise AssertionError(f"{kind} channel rel-L2 {err:.3e} >= {gate:g}")
+        # 3 more steps at this shape: the kernel path against the plain path
+        gd, dts = model.ops.gdims, [dt] * 3
+        uk, vk, _ = run_steps(model.fused_step(), model.consts, u.view(gd), v.view(gd), tf, dts)
+        up, vp, _ = run_steps(model.fused_step(stage_fn=stage_plain), model.consts,
+                              u.view(gd), v.view(gd), tf, dts)
+        torch.cuda.synchronize()
+        worst = max(rel_err(uk, up)[0], rel_err(vk, vp)[0])
+        say(f"[6] {kind} channel, 3 steps, K2 path vs plain path: max rel diff {worst:.3e} "
+            f"(gate 1e-4)")
+        if not worst <= 1e-4:
+            raise AssertionError(f"{kind} channel kernel path disagrees with the plain path: "
+                                 f"{worst:.3e}")
+    return {k: n[k] for k, n in launches.items()}
+
+
+def phase_hitu(device, card) -> dict:
+    """The slice's main path: HITU W-H101-WATER at the driver defaults."""
+    import torch
+
+    from fenicsxfus_tpu_torch.drivers import hitu
+    from fenicsxfus_tpu_torch.models.common import run_steps
+    from fenicsxfus_tpu_torch.ops.stage import stage_apply
+    from fenicsxfus_tpu_torch.ops.stiffness import stiffness_apply
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    # --- the main path: counts from 0 just before, read just after
+    stage_apply.launches.clear()
+    stiffness_apply.launches = 0
+    res = hitu.run("W", "H101", "WATER", device=device)
+    torch.cuda.synchronize()
+    launches = {"stage": dict(stage_apply.launches), "stiffness": stiffness_apply.launches}
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    model = res.model
+    ndofs = model.number_of_dofs()
+    rate = ndofs * res.nsteps / res.solve_s / 1e9
+    say(f"[7] HITU W-H101-WATER: {ndofs} DOF, {res.nsteps} RK4 steps, {model.step_kind} step, "
+        f"launches {launches}")
+    say(f"[7] setup {res.setup_s:.2f} s, solve {res.solve_s:.3f} s, {rate:.4f} "
+        f"GDOF-RK4-updates/s, device memory peak {peak_gib:.3f} GiB ({card})")
+    if model.step_kind != "fused" or launches["stage"] != {"focused": 4 * res.nsteps}:
+        raise AssertionError(f"HITU did not run through K2 focused 4 times per step: {launches}")
+    amp, x = res.amplitude, res.x
+    if amp.shape != (161,) or not np.all(np.isfinite(amp)):
+        raise AssertionError("HITU axial amplitude is not 161 finite values")
+
+    ref = np.load(ROOT / "benchmarks" / "hitu" / "results" / "w_h101_water.npz")
+    ref_amp, ref_x = ref["amplitude"], ref["x"]
+    i_pk, i_ref = int(np.argmax(amp)), int(np.argmax(ref_amp))
+    rel_peak = (amp[i_pk] - ref_amp[i_ref]) / ref_amp[i_ref]
+    say(f"[7] focal peak {amp[i_pk]:.6e} Pa at x = {x[i_pk]*1e3:.2f} mm (sensor {i_pk}); "
+        f"JAX package's run {ref_amp[i_ref]:.6e} Pa at {ref_x[i_ref]*1e3:.2f} mm (sensor {i_ref}); "
+        f"relative difference {rel_peak:.6e}, axial profile max rel diff "
+        f"{np.max(np.abs(amp - ref_amp)) / ref_amp[i_ref]:.3e}")
+    if not (abs(rel_peak) < 0.02 and abs(i_pk - i_ref) <= 1):
+        raise AssertionError("HITU focal peak misses the JAX package's run (2%, ±1 sensor)")
+
+    # --- 3 more steps from the reached state: fused K2 vs the unfused (K1) step
+    gd = model.ops.gdims
+    u, v, t, dts = model.u_n, model.v_n, model.t, [model.dt] * 3
+    uk, vk, _ = run_steps(model.fused_step(), model.consts, u.view(gd), v.view(gd), t, dts)
+    uu, vu, _ = run_steps(model.unfused_step(), model.consts, u, v, t, dts)
+    torch.cuda.synchronize()
+    worst = max(rel_err(uk.reshape(-1), uu)[0], rel_err(vk.reshape(-1), vu)[0])
+    say(f"[7] 3 steps, fused K2 path vs unfused K1 path: max rel diff {worst:.3e} (gate 1e-4)")
+    if not worst <= 1e-4:
+        raise AssertionError(f"HITU fused path disagrees with the unfused path: {worst:.3e}")
+    return {"launches": launches, "rate": rate, "solve_s": res.solve_s, "setup_s": res.setup_s,
+            "peak_gib": peak_gib}
+
+
+def phase_oneil(device) -> None:
+    """The O'Neil check of the focused source at ``validate_oneil``'s
+    defaults, gated as the JAX package's committed run."""
+    import json
+
+    import torch
+
+    from fenicsxfus_tpu_torch.drivers import hitu
+
+    t0 = time.perf_counter()
+    gain, pos, prof = hitu.validate_oneil("H101", device=device)
+    torch.cuda.synchronize()
+    ref = json.loads(str(np.load(ROOT / "benchmarks" / "hitu" / "results"
+                                 / "oneil_h101_0.35mhz.npz")["meta"]))
+    say(f"[8] O'Neil H101 0.35 MHz nx=64 ({time.perf_counter() - t0:.1f} s): gain error "
+        f"{gain*100:.3f}%, position error {pos*1e3:.3f} mm, focal L2 {prof*100:.3f}%; "
+        f"JAX package's run: {ref['gain_err']*100:.3f}%, {ref['pos_err_mm']:.3f} mm, "
+        f"{ref['profile_err']*100:.3f}% (gates 8%, 2.25 mm, 10%)")
+    if not (gain < 0.08 and pos <= 2.25e-3 + 1e-12 and prof < 0.10):
+        raise AssertionError("O'Neil gate failed")
+
+
 def main() -> int:
     import torch
 
@@ -331,6 +552,11 @@ def main() -> int:
     k2 = phase_k2(device, card, [((9, 5, 7), 4), headline], headline)
     phase_planewave(device)
     run = phase_headline(device, card, HEADLINE_NX)
+    kinds = phase_kinds(device, card)
+    channel = phase_channel(device)
+    hitu_run = phase_hitu(device, card)
+    phase_oneil(device)
+    launches = {**channel, "focused": hitu_run["launches"]["stage"]["focused"]}
     kernels = [
         {"name": "stiffness_apply (K1)", "route": "cuda",
          "source": "fenicsxfus_tpu_torch/csrc/stiffness.cu",
@@ -340,8 +566,15 @@ def main() -> int:
         {"name": "stage_apply linear (K2)", "route": "cuda",
          "source": "fenicsxfus_tpu_torch/csrc/stage.cu",
          "replaces": "fenicsxfus_tpu/ops/pallas_stage_v3.py:442",
-         "launches": run["launches"]["stage"], "max_abs_err": k2["max_abs_err"],
+         "launches": run["launches"]["stage"]["linear"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+    ] + [
+        {"name": f"stage_apply {kind} (K2)", "route": "cuda",
+         "source": "fenicsxfus_tpu_torch/csrc/stage.cu",
+         "replaces": "fenicsxfus_tpu/ops/pallas_stage_v3.py:442",
+         "launches": launches[kind], "max_abs_err": kinds[kind]["max_abs_err"],
+         "ms": kinds[kind]["ms"], "plain_ms": kinds[kind]["plain_ms"]}
+        for kind in NEW_KINDS
     ]
     say(card)
     say(json.dumps({"kernels": kernels}))

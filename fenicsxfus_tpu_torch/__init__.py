@@ -6,14 +6,21 @@ lattice kernels hand-written in CUDA C++ (``csrc/``), compiled by ``nvcc`` at
 first use (``_build.py``). It imports no jax. The JAX package
 ``fenicsxfus_tpu`` stays the reference the port is held against.
 
-This first slice carries the headline path: ``LinearSpectralExplicit`` on a
-uniform ``create_box`` lattice with explicit RK, the K1 stiffness kernel
-(``ops/stiffness.py``) and the K2 fused RK-stage kernel (``ops/stage.py``).
+Ported so far: the explicit-RK models ``LinearSpectralExplicit``,
+``LossySpectralExplicit``, ``WesterveltSpectralExplicit`` and
+``WesterveltSpectralFocused`` on a uniform ``create_box`` lattice, with point
+sensors and in-loop recording (``rk_record``), the HITU focused-bowl driver
+(``drivers/hitu.py``), the K1 stiffness kernel (``ops/stiffness.py``) and the
+K2 fused RK-stage kernel for all four model kinds (``ops/stage.py``).
 """
 
 from .core.mesh import Mesh, create_box, create_interval, create_rectangle, tag_boundaries  # noqa: F401
+from .models.focused import WesterveltSpectralFocused, bowl_delays  # noqa: F401
 from .models.linear import LinearSpectralExplicit  # noqa: F401
+from .models.lossy import LossySpectralExplicit  # noqa: F401
+from .models.westervelt import WesterveltSpectralExplicit  # noqa: F401
 from .ops.operators import SEMOperators  # noqa: F401
+from .utils import compute_diffusivity_of_sound  # noqa: F401
 
 __all__ = [
     "Mesh",
@@ -23,6 +30,11 @@ __all__ = [
     "tag_boundaries",
     "SEMOperators",
     "LinearSpectralExplicit",
+    "LossySpectralExplicit",
+    "WesterveltSpectralExplicit",
+    "WesterveltSpectralFocused",
+    "bowl_delays",
+    "compute_diffusivity_of_sound",
 ]
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """Build the CUDA kernels of ``csrc/`` at first use and load them with ctypes.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+``sm_90a`` (Hopper), all started together, and the objects are linked into
 one shared library with a plain C interface. The library is keyed by a hash
 of the sources and flags and kept in ``_build/`` beside this file (listed in
 ``.gitignore``), so a second process reuses it. A missing ``nvcc``, a failed
@@ -23,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -50,6 +51,18 @@ def _source_hash(files) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> str:
+    """Wait for every (command, process) pair, then raise on the first that
+    failed; returns the joined compiler output."""
+    results = [(cmd, proc, *proc.communicate()) for cmd, proc in procs]
+    for cmd, proc, out, err in results:
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}{err}"
+            )
+    return "".join(out + err for _, _, out, err in results)
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the kernels if no library for the current sources exists.
 
@@ -60,19 +73,26 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = lib.with_name(f"{lib.name}.{tag}")
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n{' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, seconds, res.stdout + res.stderr
+    try:
+        compiles = []
+        for src, obj in zip(sources, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            compiles.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        log = _run(compiles)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        log += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, lib)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
+    return lib, time.perf_counter() - t0, log
 
 
 _P = ctypes.c_void_p
@@ -90,8 +110,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.fus_stiffness_apply.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _LLP, _I, _DP, _P, _I]
     lib.fus_stiffness_apply.restype = _I
-    lib.fus_stage_linear.argtypes = [_I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _I]
-    lib.fus_stage_linear.restype = _I
+    lib.fus_stage.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _I]
+    lib.fus_stage.restype = _I
     lib.fus_error_string.argtypes = [_I]
     lib.fus_error_string.restype = ctypes.c_char_p
     return lib

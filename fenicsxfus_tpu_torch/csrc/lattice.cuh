@@ -67,53 +67,100 @@ __device__ __forceinline__ void node_coords(long long node, const Lattice& L,
   g0 = (int)(t / L.G1);
 }
 
-// One axis: sum over the (one or two) cells holding coordinate g of
-// F[fbase + c*fcell] * sum_j K1[k][j] * src(first_node_of_cell + j*stride).
-template <typename T, typename Src>
+// The values of NF fields at one node (K1 reads x0 and x1, K2 un and vn,
+// in one stencil pass).
+template <typename T, int NF>
+struct Vals {
+  T v[NF];
+};
+
+// Where one field's F_a entry of a node sits: F[fbase + c*fcell] for cell c.
+template <typename T>
+struct AxisCoeff {
+  const T* F;
+  long long fbase, fcell;
+};
+
+// One axis, NF fields at once: sum over the (one or two) cells holding
+// coordinate g and over the fields f of
+//   F_f[fbase_f + c*fcell_f] * sum_j K1[k][j] * src(first_node_of_cell + j*stride).v[f].
+// The stencil reads each neighbour once for all fields.
+template <typename T, int NF, typename Src>
 __device__ __forceinline__ T axis_term(const Src& src, long long node, long long stride,
                                        int g, int n, int p, const K1Mat<T>& K,
-                                       const T* __restrict__ F, long long fbase,
-                                       long long fcell) {
+                                       const AxisCoeff<T> (&cf)[NF]) {
   const int N = p + 1;
   int c = g / p;
   if (c >= n) c = n - 1;  // the last node g = n*p is local node p of cell n-1
   const int k = g - c * p;
   long long base = node - (long long)k * stride;
-  T s = 0;
-  for (int j = 0; j < N; ++j) s += K.w[k * N + j] * src(base + j * stride);
-  T acc = __ldg(F + fbase + c * fcell) * s;
+  T s[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) s[f] = 0;
+  for (int j = 0; j < N; ++j) {
+    const Vals<T, NF> x = src(base + j * stride);
+    const T w = K.w[k * N + j];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) s[f] += w * x.v[f];
+  }
+  T acc = __ldg(cf[0].F + cf[0].fbase + c * cf[0].fcell) * s[0];
+#pragma unroll
+  for (int f = 1; f < NF; ++f) acc += __ldg(cf[f].F + cf[f].fbase + c * cf[f].fcell) * s[f];
   if (k == 0 && c > 0) {  // interface node: also local node p of cell c-1
     base = node - (long long)p * stride;
-    s = 0;
-    for (int j = 0; j < N; ++j) s += K.w[p * N + j] * src(base + j * stride);
-    acc += __ldg(F + fbase + (c - 1) * fcell) * s;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) s[f] = 0;
+    for (int j = 0; j < N; ++j) {
+      const Vals<T, NF> x = src(base + j * stride);
+      const T w = K.w[p * N + j];
+#pragma unroll
+      for (int f = 0; f < NF; ++f) s[f] += w * x.v[f];
+    }
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      acc += __ldg(cf[f].F + cf[f].fbase + (c - 1) * cf[f].fcell) * s[f];
   }
   return acc;
 }
 
-// Stiffness of one field at node (g0, g1, g2): the three axis terms.
-template <typename T, typename Src>
-__device__ __forceinline__ T stiffness_at(const Src& src, const Coeff<T>& cf,
+// Stiffness sum_f K_{cf[f]}(x_f) at node (g0, g1, g2): the three axis terms.
+// ``src(i)`` returns the NF field values at node i.
+template <typename T, int NF, typename Src>
+__device__ __forceinline__ T stiffness_at(const Src& src, const Coeff<T> (&cf)[NF],
                                           const Lattice& L, const K1Mat<T>& K,
                                           long long node, int g0, int g1, int g2) {
   const long long P12 = L.G1 * L.G2;
+  AxisCoeff<T> a[NF];
   // F0 [e0, G1, G2]
-  T y = axis_term(src, node, P12, g0, L.n0, L.p, K, cf.F[0],
-                  (long long)g1 * L.G2 + g2, cf.ext[0] > 1 ? P12 : 0);
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+    a[f] = {cf[f].F[0], (long long)g1 * L.G2 + g2, cf[f].ext[0] > 1 ? P12 : 0};
+  T y = axis_term<T, NF>(src, node, P12, g0, L.n0, L.p, K, a);
   // F1 [G0, e1, G2]
-  y += axis_term(src, node, L.G2, g1, L.n1, L.p, K, cf.F[1],
-                 (long long)g0 * cf.ext[1] * L.G2 + g2, cf.ext[1] > 1 ? L.G2 : 0);
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+    a[f] = {cf[f].F[1], (long long)g0 * cf[f].ext[1] * L.G2 + g2,
+            cf[f].ext[1] > 1 ? L.G2 : 0};
+  y += axis_term<T, NF>(src, node, L.G2, g1, L.n1, L.p, K, a);
   // F2 [G0, G1, e2]
-  y += axis_term(src, node, 1, g2, L.n2, L.p, K, cf.F[2],
-                 ((long long)g0 * L.G1 + g1) * cf.ext[2], cf.ext[2] > 1 ? 1 : 0);
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+    a[f] = {cf[f].F[2], ((long long)g0 * L.G1 + g1) * cf[f].ext[2],
+            cf[f].ext[2] > 1 ? 1LL : 0LL};
+  y += axis_term<T, NF>(src, node, 1, g2, L.n2, L.p, K, a);
   return y;
 }
 
-// Plain field read through the read-only cache.
-template <typename T>
+// Plain read of NF fields through the read-only cache.
+template <typename T, int NF>
 struct FieldLoad {
-  const T* x;
-  __device__ __forceinline__ T operator()(long long i) const { return __ldg(x + i); }
+  const T* x[NF];
+  __device__ __forceinline__ Vals<T, NF> operator()(long long i) const {
+    Vals<T, NF> r;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) r.v[f] = __ldg(x[f] + i);
+    return r;
+  }
 };
 
 inline unsigned int grid_blocks(long long total, int threads) {

@@ -26,17 +26,18 @@
 
 namespace fus {
 
-template <typename T>
-__global__ void stiffness_kernel(const T* __restrict__ x0, const T* __restrict__ x1,
-                                 Coeff<T> c0, Coeff<T> c1, T* __restrict__ y,
-                                 Lattice L, K1Mat<T> K) {
+// NF fields in one stencil pass: each neighbour is read once for all fields.
+template <typename T, int NF>
+__global__ void stiffness_kernel(FieldLoad<T, NF> x, Coeff<T> c0, Coeff<T> c1,
+                                 T* __restrict__ y, Lattice L, K1Mat<T> K) {
   const long long node = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= L.G0 * L.G1 * L.G2) return;
   int g0, g1, g2;
   node_coords(node, L, g0, g1, g2);
-  T acc = stiffness_at(FieldLoad<T>{x0}, c0, L, K, node, g0, g1, g2);
-  if (x1 != nullptr) acc += stiffness_at(FieldLoad<T>{x1}, c1, L, K, node, g0, g1, g2);
-  y[node] = acc;
+  Coeff<T> cf[NF];
+  cf[0] = c0;
+  if constexpr (NF > 1) cf[1] = c1;
+  y[node] = stiffness_at<T, NF>(x, cf, L, K, node, g0, g1, g2);
 }
 
 template <typename T>
@@ -52,10 +53,15 @@ static void launch_stiffness(int nf, const unsigned long long* xs,
       c[f].ext[a] = ext[3 * f + a];
     }
   const int threads = 256;
-  stiffness_kernel<T><<<grid_blocks(L.G0 * L.G1 * L.G2, threads), threads, 0, stream>>>(
-      reinterpret_cast<const T*>(xs[0]),
-      nf > 1 ? reinterpret_cast<const T*>(xs[1]) : nullptr, c[0], c[1],
-      reinterpret_cast<T*>(y), L, make_k1<T>(K1, p));
+  const unsigned int blocks = grid_blocks(L.G0 * L.G1 * L.G2, threads);
+  const K1Mat<T> K = make_k1<T>(K1, p);
+  auto X = [&](int f) { return reinterpret_cast<const T*>(xs[f]); };
+  if (nf == 1)
+    stiffness_kernel<T, 1><<<blocks, threads, 0, stream>>>(
+        FieldLoad<T, 1>{{X(0)}}, c[0], c[1], reinterpret_cast<T*>(y), L, K);
+  else
+    stiffness_kernel<T, 2><<<blocks, threads, 0, stream>>>(
+        FieldLoad<T, 2>{{X(0), X(1)}}, c[0], c[1], reinterpret_cast<T*>(y), L, K);
 }
 
 }  // namespace fus

@@ -1,0 +1,257 @@
+"""HITU focused-bowl benchmark driver (port of ``benchmarks/hitu/common.py``).
+
+The reference's HITU drivers (``cpp/fenicsx-sf-fastor/benchmarks/HITU/
+{W-H101,W-H131}-{WATER,LIVER}`` and the lossy ``cpp/fenicsx-sf-naive/
+benchmarks/HITU/V-H131-WATER``): Sonic Concepts H101 (64 mm aperture,
+63.2 mm radius of curvature) and H131 (33 mm aperture, 35 mm ROC) bowl
+transducers driving Westervelt or lossy propagation in water or liver at
+1.1 MHz. The bowl is an equivalent phased flat aperture
+(``models/focused.py``), checked against the O'Neil (1949) axial solution by
+``validate_oneil``. By default the frequency is scaled to 0.5 MHz so that a
+resolved mesh fits one card; ``full=True`` selects the true 1.1 MHz.
+
+Run on the card, e.g. ``python -m fenicsxfus_tpu_torch.drivers.hitu W H101 WATER``
+(``--oneil`` for the O'Neil check). The bowl-fitted mesh (``bowl=True``)
+arrives with the bowl slice of the port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..analysis.analytical import oneil_axial_amplitude
+from ..core.mesh import create_box, tag_boundaries
+from ..models.focused import WesterveltSpectralFocused
+
+# transducer geometry: half-aperture a, radius of curvature, domain length
+# and width (Groth et al. 2021; domain lengths from the reference mains:
+# W-H101-*: 0.12 m, W-H131-*: 0.08 m)
+TRANSDUCERS = {
+    "H101": {"a": 0.032, "roc": 0.0632, "L": 0.12, "W": 0.07},
+    "H131": {"a": 0.0165, "roc": 0.035, "L": 0.08, "W": 0.044},
+}
+
+# media: c0 m/s, rho0 kg/m^3, beta, attenuation dB/m
+# WATER: W-H101-WATER/main.cpp:33-44; LIVER: W-H101-LIVER/main.cpp:33-47
+MEDIA = {
+    "WATER": {"c0": 1480.0, "rho0": 1000.0, "beta": 3.5, "att_dB": 0.2},
+    "LIVER": {"c0": 1590.0, "rho0": 1060.0, "beta": 4.4, "att_dB": 90.0},
+}
+
+F0_FULL = 1.1e6  # source frequency (Hz), all reference HITU mains
+
+# source velocities u0 (m/s); p0 = rho c u0 (reference main.cpp:36-37).
+# The W- values are the fastor drivers'; V-H131-WATER (lossy) uses the
+# sf-naive value.
+SOURCE_VELOCITY = {
+    ("W", "H101", "WATER"): 0.13984880278551745,
+    ("W", "H101", "LIVER"): 0.1853331526917232,
+    ("W", "H131", "WATER"): 0.38557513826589934,
+    ("W", "H131", "LIVER"): 0.3613169918914827,
+    ("V", "H131", "WATER"): 0.2726428,
+}
+
+
+def build_model(kind: str, tx: str, medium: str, nx: int, degree: int = 4,
+                f0: float | None = None, cfl: float = 0.4, dtype=None,
+                linear: bool = False, nyz: int | None = None, device="cpu"):
+    """Focused model for variant ``kind`` ("W" Westervelt, "V" lossy) on
+    transducer ``tx`` in ``medium``, on an nx × nyz × nyz box (cubic cells
+    unless ``nyz`` is given). ``linear=True`` zeroes β and δ (O'Neil check).
+    Returns (model, h, dt, steps per period)."""
+    dtype = dtype or torch.float32
+    g = TRANSDUCERS[tx]
+    m = MEDIA[medium]
+    f0 = f0 or F0_FULL
+    c0, rho0 = m["c0"], m["rho0"]
+    p0 = rho0 * c0 * SOURCE_VELOCITY[(kind, tx, medium)]
+    w0 = 2 * np.pi * f0
+    alphaNp = m["att_dB"] / 20 * np.log(10)
+    delta0 = 0.0 if linear else 2 * alphaNp * c0**3 / w0**2
+    beta0 = 0.0 if (linear or kind == "V") else m["beta"]
+
+    L, W = g["L"], g["W"]
+    h = L / nx
+    nyz = nyz or max(int(round(W / h)), 2)
+    mesh = create_box((nx, nyz, nyz), (0.0, -W / 2, -W / 2), (L, W / 2, W / 2))
+    a = g["a"]
+    eps = 1e-9
+    tag_boundaries(mesh, {1: lambda x: (x[0] < eps) & (np.hypot(x[1], x[2]) <= a)}, default=2)
+
+    # CFL dt rounded to integer steps per period (reference main.cpp:108-111)
+    dt_cfl = cfl * h / (c0 * degree**2)
+    spp = int(1 / f0 / dt_cfl) + 1
+    dt = 1 / f0 / spp
+
+    model = WesterveltSpectralFocused(
+        mesh, None, degree, c0, rho0, delta0, beta0, f0, p0, c0, 4, dt,
+        aperture_radius=a, focal_distance=g["roc"], center=np.array([0.0, 0.0, 0.0]),
+        dtype=dtype, device=device,
+    )
+    model.init()
+    return model, h, dt, spp
+
+
+def axial_points(tx: str, n: int = 161):
+    L = TRANSDUCERS[tx]["L"]
+    x = np.linspace(0.0, L, n)
+    return np.stack([x, np.zeros_like(x), np.zeros_like(x)])
+
+
+def steady_amplitude(times, ys, f0, n_periods=2):
+    """Peak |u| per sensor over the last ``n_periods`` source periods
+    (``ys`` [n_steps, n_sensors], host)."""
+    tail = times > times[-1] - n_periods / f0
+    return np.max(np.abs(ys[tail]), axis=0)
+
+
+def _synchronize(model):
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+
+
+def _record_axial(model, tx, tf):
+    """``rk_record`` of the axial sensors from t = 0 to ``tf``:
+    (x, times, ys on the host, solve seconds)."""
+    pts = axial_points(tx)
+    _synchronize(model)
+    t0 = time.perf_counter()
+    _, _, _, times, ys = model.rk_record(0.0, tf, pts)
+    ys = ys.cpu().numpy()  # waits for the device
+    return pts[0], times, ys, time.perf_counter() - t0
+
+
+@dataclass
+class HituRun:
+    """One HITU run: axial positions, steady amplitude, and what it cost."""
+
+    x: np.ndarray
+    amplitude: np.ndarray
+    model: WesterveltSpectralFocused
+    setup_s: float  # mesh, host assembly and upload
+    solve_s: float  # the time march with in-loop recording
+    nsteps: int
+
+
+def run(kind: str, tx: str, medium: str, nx: int = 80, degree: int = 4,
+        full: bool = False, f0: float | None = None, out: str | None = None,
+        final_time: float | None = None, dtype=None, bowl: bool = False,
+        nyz: int | None = None, device="cpu") -> HituRun:
+    """Run one HITU variant and read the steady axial amplitude from 161
+    on-axis sensors. ``out`` writes the result as ``.npz``."""
+    if bowl:
+        raise NotImplementedError("the bowl-fitted mesh is not ported yet")
+    f0 = f0 or (F0_FULL if full else 0.5e6)
+    t0 = time.perf_counter()
+    model, h, dt, spp = build_model(kind, tx, medium, nx, degree=degree, f0=f0,
+                                    dtype=dtype, nyz=nyz, device=device)
+    _synchronize(model)
+    setup = time.perf_counter() - t0
+    c0 = MEDIA[medium]["c0"]
+    tf = final_time or (TRANSDUCERS[tx]["L"] / c0 + 8.0 / f0)
+    ndofs = model.number_of_dofs()
+    name = f"{kind}-{tx}-{medium}"
+    print(f"HITU {name}: f0={f0/1e6:.2f} MHz  p={degree}  {c0 / f0 / h:.2f} elems/wavelength  "
+          f"DOFs={ndofs/1e6:.2f}M  dt={dt:.3e}  steps={int(round(tf / dt))}  "
+          f"steps/period={spp}  {model.step_kind} step on {model.device}")
+    x, times, ys, elapsed = _record_axial(model, tx, tf)
+    amp = steady_amplitude(times, ys, f0)
+    i_pk = int(np.argmax(amp))
+    print(f"  setup {setup:.1f} s, solve {elapsed:.2f} s ({ndofs * len(times) / elapsed / 1e9:.3f} "
+          f"GDOF-steps/s) | peak |p| {amp[i_pk]/1e6:.3f} MPa at x={x[i_pk]*1e3:.2f} mm "
+          f"(geometric focus {TRANSDUCERS[tx]['roc']*1e3:.1f} mm)")
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        keep = times > times[-1] - 4.0 / f0
+        sens = np.linspace(0, len(x) - 1, 31, dtype=int)
+        np.savez_compressed(
+            out, x=x, amplitude=amp, sensor_x=x[sens], times=times[keep],
+            waveforms=ys[keep][:, sens],
+            meta=json.dumps({"variant": name, "f0": f0, "nx": nx, "degree": degree, "dt": dt,
+                             "ndofs": int(ndofs), "tf": tf,
+                             "device": str(model.device)}),
+        )
+        print(f"  wrote {out}")
+    return HituRun(x, amp, model, setup, elapsed, len(times))
+
+
+def validate_oneil(tx: str = "H101", f0: float = 0.35e6, nx: int = 64,
+                   degree: int = 4, out: str | None = None, dtype=None, device="cpu"):
+    """Linear (β = δ = 0) run of the phased-aperture bowl model against the
+    O'Neil (1949) axial solution. Returns (focal-gain error, focal position
+    error in m, focal-region L2 error)."""
+    model, h, dt, spp = build_model("W", tx, "WATER", nx, degree=degree, f0=f0,
+                                    dtype=dtype, linear=True, device=device)
+    g = TRANSDUCERS[tx]
+    c0 = MEDIA["WATER"]["c0"]
+    p0 = MEDIA["WATER"]["rho0"] * c0 * SOURCE_VELOCITY[("W", tx, "WATER")]
+    tf = g["L"] / c0 + 10.0 / f0
+    ndofs = model.number_of_dofs()
+    lam = c0 / f0
+    print(f"O'Neil validation {tx}: f0={f0/1e6:.2f} MHz  p={degree}  "
+          f"{lam/h:.2f} elems/wavelength  DOFs={ndofs/1e6:.2f}M")
+    x, times, ys, elapsed = _record_axial(model, tx, tf)
+    amp = steady_amplitude(times, ys, f0)
+    k = 2 * np.pi * f0 / c0
+    # the aperture plane is the bowl RIM plane: O'Neil's axial coordinate
+    # (from the apex) is x + bowl depth (models/focused.py geometry)
+    h_depth = g["roc"] - np.sqrt(g["roc"] ** 2 - g["a"] ** 2)
+    ref = oneil_axial_amplitude(x + h_depth, g["a"], g["roc"], k, p0)
+    i_pk = int(np.argmax(amp))
+    i_rf = int(np.argmax(ref))
+    gain_err = abs(amp[i_pk] - ref[i_rf]) / ref[i_rf]
+    pos_err = abs(x[i_pk] - x[i_rf])
+    # profile error over the focal region (±1 focal-spot length)
+    focal = np.abs(x - x[i_rf]) < 7 * lam
+    prof_err = np.linalg.norm((amp - ref)[focal]) / np.linalg.norm(ref[focal])
+    print(f"  solve {elapsed:.2f} s | focal |p|: model {amp[i_pk]/1e3:.1f} kPa "
+          f"@ {x[i_pk]*1e3:.2f} mm, O'Neil {ref[i_rf]/1e3:.1f} kPa @ {x[i_rf]*1e3:.2f} mm")
+    print(f"  focal-gain error {gain_err*100:.2f}%  position error "
+          f"{pos_err*1e3:.2f} mm  focal-region L2 {prof_err*100:.2f}%")
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        np.savez_compressed(
+            out, x=x, amplitude=amp, oneil=ref,
+            meta=json.dumps({"tx": tx, "f0": f0, "nx": nx, "degree": degree,
+                             "gain_err": gain_err, "pos_err_mm": pos_err * 1e3,
+                             "profile_err": prof_err, "ndofs": int(ndofs),
+                             "device": str(model.device)}),
+        )
+        print(f"  wrote {out}")
+    return gain_err, pos_err, prof_err
+
+
+def main(argv=None) -> None:
+    """Command line: one HITU variant (or the O'Neil check) on a device."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kind", choices=["W", "V"])
+    ap.add_argument("tx", choices=sorted(TRANSDUCERS))
+    ap.add_argument("medium", choices=sorted(MEDIA))
+    ap.add_argument("--nx", type=int, default=None, help="axial cells (default 80; O'Neil 64)")
+    ap.add_argument("--degree", type=int, default=4)
+    ap.add_argument("--full", action="store_true", help="true 1.1 MHz parameters")
+    ap.add_argument("--f0", type=float, default=None)
+    ap.add_argument("--nyz", type=int, default=None, help="lateral cell count")
+    ap.add_argument("--out", type=str, default=None, help="write the result as .npz")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--oneil", action="store_true",
+                    help="run the O'Neil check of transducer TX instead (WATER, linear)")
+    args = ap.parse_args(argv)
+    if args.oneil:
+        validate_oneil(args.tx, f0=args.f0 or 0.35e6, nx=args.nx or 64, degree=args.degree,
+                       out=args.out, device=args.device)
+        return
+    run(args.kind, args.tx, args.medium, nx=args.nx or 80, degree=args.degree, full=args.full,
+        f0=args.f0, out=args.out, nyz=args.nyz, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,10 +3,15 @@
 Port of ``fenicsxfus_tpu/models/base.py`` (``source_amplitudes``,
 ``SpectralModelBase``, ``ExplicitModelBase``): material coefficients (scalar
 or cell-wise DG-0), the windowed transducer source g(t) on facet tag 1, the
-Sommerfeld ABC on facet tag 2, and the explicit-RK driver. The step is the
-fused one (one K2 launch per RK stage) when the model declares a fused kind
-and its boundary vectors live on the box faces; otherwise the reference
-a-vector RK step over ``rhs_pure`` (K1 plus elementwise torch).
+Sommerfeld ABC on facet tag 2, point sensors, and the explicit-RK driver
+with in-loop recording (``rk_record``). The step is the fused one (one K2
+launch per RK stage) when the model declares a fused kind and its boundary
+vectors live on the box faces; otherwise the reference a-vector RK step over
+``rhs_pure`` (K1 plus elementwise torch).
+
+The port's operators take uniform lattices only (``SEMOperators`` refuses
+the rest), so the sensor code has the lattice branch alone; the hybrid
+(bowl-deformed) branches arrive with the bowl slice.
 """
 
 from __future__ import annotations
@@ -16,9 +21,17 @@ import math
 import numpy as np
 import torch
 
+from ..core.gll import gll_points_weights_01, lagrange_eval_gll
 from ..ops.operators import SEMOperators
 from ..ops.stage import KIND_DENSE, KIND_FACET, FusedRKStage, pack_facet_vector, stage_apply
-from .common import explicit_tables, make_rk_step, make_scan_from_step, source_window
+from .common import (
+    explicit_tables,
+    make_recording_scan,
+    make_rk_step,
+    make_scan_from_step,
+    source_window,
+    step_sizes,
+)
 
 
 def _cellwise(val, num_cells):
@@ -84,6 +97,77 @@ class SpectralModelBase:
     def number_of_dofs(self) -> int:
         return self.ops.ndofs
 
+    # -- point sensors -----------------------------------------------------
+
+    def _lattice_coords(self, points):
+        """Per axis, the lattice cell of each of ``points`` [dim, n] and its
+        reference coordinate in [0, 1]."""
+        pts = np.asarray(points, np.float64)
+        lat = self.ops.lattice
+        lo = self.mesh.vertices.min(axis=0)
+        cells, xis = [], []
+        for a in range(self.mesh.dim):
+            s = (pts[a] - lo[a]) / lat.h[a]
+            c = np.clip(np.floor(s).astype(np.int64), 0, lat.grid[a] - 1)
+            cells.append(c)
+            xis.append(np.clip(s - c, 0.0, 1.0))
+        return cells, xis
+
+    def sensor_indices(self, points) -> np.ndarray:
+        """Nearest-DOF indices for sensor ``points`` [dim, n], snapped in
+        closed form per lattice axis (exact for sensors placed on nodes)."""
+        lat = self.ops.lattice
+        gll, _ = gll_points_weights_01(lat.N)
+        cells, xis = self._lattice_coords(points)
+        per_axis = [c * lat.p + np.argmin(np.abs(xi[:, None] - gll[None, :]), axis=1)
+                    for c, xi in zip(cells, xis)]
+        return np.ravel_multi_index(per_axis, lat.gdims)
+
+    def _locate_sensors(self, points):
+        """(cells [n], xi [n, dim]) of sensor ``points`` [dim, n]: the lattice
+        cell of each point and its reference coordinates."""
+        cells, xis = self._lattice_coords(points)
+        return np.ravel_multi_index(cells, self.ops.lattice.grid), np.stack(xis, axis=1)
+
+    def sensor_interp_tables(self, points):
+        """Interpolating sensor tables: (rows [n, N**d] flat DOF indices,
+        wts [n, N**d] Lagrange weights), ``Function.eval`` semantics for
+        off-node sensors (the reference interpolates,
+        ``cpp/mwe/parallel_eval_line/main.cpp:49-107``). The weight row of a
+        sensor on a node is one-hot."""
+        cells, xis = self._locate_sensors(points)
+        rows = np.asarray(self.ops.space.dofmap_for_cells(cells), np.int64).reshape(len(cells), -1)
+        N = self.ops.N
+        w = lagrange_eval_gll(N, xis[:, 0])
+        for a in range(1, xis.shape[1]):
+            t = lagrange_eval_gll(N, xis[:, a])
+            w = (w[:, :, None] * t[:, None, :]).reshape(len(cells), -1)
+        return rows, w
+
+    def _record_plan(self, points):
+        """Per-step sensor extractor ``u -> [n]`` for ``points`` [dim, n]:
+        a nearest-DOF gather when every sensor sits on a node (every weight
+        row one-hot), else the interpolating gather (no snap-to-node phase
+        error for off-node sensors)."""
+        rows, wts = self.sensor_interp_tables(points)
+        amax = np.abs(wts).max(axis=1)
+        if np.all(amax >= 1.0 - 1e-9):
+            idx = rows[np.arange(len(rows)), np.abs(wts).argmax(axis=1)]
+            return self._sensor_extractor(idx)
+        return self._sensor_extractor_interp(rows, wts)
+
+    def _sensor_extractor(self, idx: np.ndarray):
+        """Nearest-DOF extraction: an index gather on the flat field view."""
+        it = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        return lambda u: u.reshape(-1).index_select(0, it)
+
+    def _sensor_extractor_interp(self, rows: np.ndarray, wts: np.ndarray):
+        """Interpolating extraction: gather the N**d nodes of each sensor's
+        cell and contract with its Lagrange weights."""
+        rt = torch.as_tensor(rows, device=self.device)
+        wt = torch.as_tensor(wts, dtype=self.dtype, device=self.device)
+        return lambda u: (u.reshape(-1)[rt] * wt).sum(-1)
+
 
 class ExplicitModelBase(SpectralModelBase):
     """Explicit-RK models: subclasses define ``rhs_pure(ops, consts, t, u, v)``."""
@@ -130,10 +214,9 @@ class ExplicitModelBase(SpectralModelBase):
                 self.consts[k + "__pf"] = {
                     n: self.ops.to_device(v) for n, v in packed.items()
                 }
-        (key,) = keys
         stage = FusedRKStage(gdims, self.degree, kind, explicit_tables(self.rk_order))
         return stage.make_step(
-            lambda c: c[key],
+            lambda c: [c[k] for k in keys],
             lambda c: (
                 [c[k].view(gdims) for k in dense_keys],
                 [c[k + "__pf"] for k in facet_keys],
@@ -155,3 +238,14 @@ class ExplicitModelBase(SpectralModelBase):
         u, v, t = self._solve(self.consts, self.u_n, self.v_n, t0, tf, self.dt)
         self.u_n, self.v_n, self.t = u, v, float(t)
         return self.u_n, self.v_n, self.t
+
+    def rk_record(self, t0: float, tf: float, points):
+        """Time-march like ``rk`` while recording u at sensor ``points``
+        [dim, n] after every step, on the device inside the loop. Returns
+        (u, v, t, times [n_steps] float64 numpy, ys [n_steps, n] device
+        tensor)."""
+        solve = make_recording_scan(self._make_step(), self._record_plan(points))
+        u, v, t, ys = solve(self.consts, self.u_n, self.v_n, t0, tf, self.dt)
+        times = t0 + np.cumsum(step_sizes(t0, tf, self.dt))
+        self.u_n, self.v_n, self.t = u, v, float(t)
+        return u, v, float(t), times, ys

@@ -85,15 +85,17 @@ def make_rk_step(rhs, order: int):
     return step
 
 
-def run_steps(step, consts, u, v, t0: float, dts):
+def run_steps(step, consts, u, v, t0: float, dts, record=None):
     """Apply ``step`` once per entry of ``dts``. Each step starts at its
     float64 host time t0 + Σ previous dts (never a time carried in the field
-    dtype)."""
+    dtype). ``record(i, u)``, if given, sees the state after step i."""
     dts64 = np.asarray(dts, np.float64)
     ts64 = float(t0) + np.concatenate([[0.0], np.cumsum(dts64)[:-1]])
     t = float(t0)
-    for dtn, tn in zip(dts64.tolist(), ts64.tolist()):
+    for i, (dtn, tn) in enumerate(zip(dts64.tolist(), ts64.tolist())):
         u, v, t = step(consts, (u, v, tn), dtn)
+        if record is not None:
+            record(i, u)
     return u, v, t
 
 
@@ -110,5 +112,32 @@ def make_scan_from_step(step):
             u, v = u.view(carry_shape), v.view(carry_shape)
         u, v, t = run_steps(step, consts, u, v, t0, step_sizes(t0, tf, dt))
         return u.reshape(shape), v.reshape(shape), t
+
+    return solve
+
+
+def make_recording_scan(step, extract):
+    """Like ``make_scan_from_step`` but records point sensors after every
+    step: ``solve(consts, u, v, t0, tf, dt) -> (u, v, t, ys)`` with ``ys`` a
+    device tensor [n_steps, n_sensors] of ``extract(u)``, filled in place
+    step by step (no host sync inside the loop)."""
+    carry_shape = getattr(step, "carry_shape", None)
+
+    def solve(consts, u, v, t0: float, tf: float, dt: float):
+        shape = u.shape
+        if carry_shape is not None:
+            u, v = u.view(carry_shape), v.view(carry_shape)
+        dts = step_sizes(t0, tf, dt)
+        ys = None
+
+        def record(i, u_step):
+            nonlocal ys
+            y = extract(u_step)
+            if ys is None:
+                ys = y.new_empty((len(dts),) + tuple(y.shape))
+            ys[i] = y
+
+        u, v, t = run_steps(step, consts, u, v, t0, dts, record=record)
+        return u.reshape(shape), v.reshape(shape), t, ys
 
     return solve

@@ -141,7 +141,32 @@ class SEMOperators:
         np.add.at(out, np.asarray(gdofs), vals)
         return out
 
+    def facet_vector_nodal(self, tag: int, nodal_coeff, cell_coeff=None) -> np.ndarray:
+        """Assembled ∫_{Γ_tag} c_cell · s(x) φ_i ds on the host, with a
+        per-DOF profile ``s`` [ndofs] and an optional DG-0 material
+        coefficient ``cell_coeff``: the phase-split sources of the focused
+        model in heterogeneous media (the reference keeps per-cell 1/ρ inside
+        its facet forms, ``_lossy.py:107-128``). Flat [ndofs], in the host
+        counterpart of the device dtype."""
+        gdofs, w, cells = self.facet_data(tag)
+        npdt = numpy_dtype(self.dtype)
+        gd = np.asarray(gdofs)
+        vals = np.asarray(w, npdt) * np.asarray(nodal_coeff, npdt)[gd]
+        if cell_coeff is not None:
+            coeff = np.broadcast_to(
+                np.asarray(cell_coeff, npdt).reshape(-1), (self.num_cells,)
+            )
+            if len(cells):
+                vals = vals * np.repeat(coeff[cells], w.shape[0] // len(cells))
+        out = np.zeros(self.ndofs, npdt)
+        np.add.at(out, gd, vals)
+        return out
+
     # ------------------------------------------------------------ interpolation
+
+    def dof_coords(self) -> np.ndarray:
+        """Physical coordinates of the DOFs, [ndofs, dim] (host float64)."""
+        return self.space.dof_coords
 
     def interpolate(self, fn) -> torch.Tensor:
         """Nodal interpolation of ``fn(x)`` (x: [dim, ndofs]) onto the space."""

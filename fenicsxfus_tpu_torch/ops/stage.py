@@ -1,8 +1,8 @@
-"""K2: one fused explicit-RK stage of the linear wave model.
+"""K2: one fused explicit-RK stage of the wave models, all four kinds.
 
 Port of ``fenicsxfus_tpu/ops/pallas_stage_v3.py::FusedRKStageV3`` (the TPU
 kernel ``_stage_call`` and the ``make_step`` driver) and of the helpers in
-``ops/pallas_stage.py`` (``source_coefs``, ``pack_facet_vector``,
+``ops/pallas_stage.py`` (``KIND_*``, ``source_coefs``, ``pack_facet_vector``,
 ``_facet_corrections``, ``_epilogue``, ``_stage_fields``).
 
 A stage of the a-vector RK tables reads only the step state and the two
@@ -10,24 +10,28 @@ previous slopes (reference ``_linear.py:40-65``):
 
     vn_i = v0 + aᵢ·dt·kv_{i-1}
     un_i = u0 + aᵢ·dt·v0 + aᵢa_{i-1}·dt²·kv_{i-2}
-    kv_i = (−K(un_i) + g(tᵢ)·src − abc∘vn_i) ∘ inv_m
+    acc  = K_u(un_i) [+ K_v(vn_i)]                      (1 or 2 fields)
+    corr = Σ_j s_j(tᵢ)·F_j − abc∘vn_i                    (packed facets)
+    kv_i = (−acc + corr) ∘ inv_m                         (linear, lossy)
+    kv_i = (d2∘vn_i² − acc + corr) / (m0 − d2∘un_i)      (westervelt, focused)
 
 and the last stage emits the step update directly:
 u1 = u0 + dt(Σbᵢ)v0 + dt²Σᵢ bᵢaᵢ kv_{i-1},  v1 = v0 + dtΣᵢ bᵢ kv_i.
 
-The boundary vectors (source, ABC) are nonzero only on the six box faces and
-travel packed (``pack_facet_vector``): ``xp`` [2, G1, G2], ``ye`` [G0, 2, G2],
-``ze`` [G0, G1, 2]. A vector with interior support cannot be packed, and the
-model then takes the unfused step.
+The boundary vectors (sources, ABC) are nonzero only on the six box faces
+and travel packed (``pack_facet_vector``): ``xp`` [2, G1, G2], ``ye``
+[G0, 2, G2], ``ze`` [G0, G1, 2]. A vector with interior support cannot be
+packed, and the model then takes the unfused step.
 
 ``stage_apply`` is the wrapper: CUDA tensors launch ``csrc/stage.cu``; CPU
-tensors run ``stage_plain``. Only the ``linear`` kind is ported; the lossy,
-Westervelt and focused kinds raise ``NotImplementedError``.
+tensors run ``stage_plain``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -42,19 +46,52 @@ from .stiffness import (
     stiffness_plain,
 )
 
-# dense per-DOF extras and packed facet vectors each kind reads; the last
-# facet entry is the ABC diagonal (pointwise −vn coefficient)
-KIND_DENSE = {"linear": ("inv_m",)}
-KIND_FACET = {"linear": ("src_vec", "abc_diag")}
+# stiffness fields per kind: un (coefficient 0) and vn (coefficient 1)
+KIND_FIELDS = {"linear": 1, "lossy": 2, "westervelt": 2, "focused": 2}
+# dense per-DOF extras read by the epilogue, in operand order
+KIND_DENSE = {
+    "linear": ("inv_m",),
+    "lossy": ("inv_m",),
+    "westervelt": ("m0", "d2"),
+    "focused": ("m0", "d2"),
+}
+# packed facet vectors; the last entry is always the ABC diagonal (pointwise
+# −vn coefficient), the others take the scalars of ``source_coefs``
+KIND_FACET = {
+    "linear": ("src_vec", "abc_diag"),
+    "lossy": ("src_vec", "src_vec_d", "abc_diag"),
+    "westervelt": ("src_vec", "src_vec_d", "abc_diag"),
+    # phased-aperture (bowl) source: cos/sin phase-split pairs for g and dg
+    "focused": ("src_cos", "src_sin", "src_cos_d", "src_sin_d", "abc_diag"),
+}
+# kinds whose lumped mass depends on the stage field: m = m0 − d2∘un
+NONLINEAR_KINDS = ("westervelt", "focused")
+# kind codes of the C entry ``fus_stage`` (csrc/stage.cu, enum Kind)
+KIND_CODES = {"linear": 0, "lossy": 1, "westervelt": 2, "focused": 3}
 
 
-def source_coefs(consts: dict, t: float) -> list[float]:
-    """Scalar time coefficients of the non-ABC facet vectors (kind
-    ``linear``: the source amplitude g(t)), on the host in float64."""
+def source_coefs(kind: str, consts: dict, t: float) -> list[float]:
+    """Scalar time coefficients of the non-ABC facet vectors of ``kind``, on
+    the host in float64: [g] (linear), [g, dg] (lossy, Westervelt), or the
+    phase-split pairs of the focused source,
+    [win·amp·cos, win·amp·sin, dwin·amp·cos − win·amp·w0·sin,
+    dwin·amp·sin + win·amp·w0·cos] at ω0·t (``models/focused.py``)."""
     from ..models.base import source_amplitudes
+    from ..models.common import source_window
 
-    g, _ = source_amplitudes(consts, t)
-    return [g]
+    if kind == "focused":
+        w0 = consts["w0"]
+        amp = consts["p0"] * w0 / consts["s0"]
+        win, dwin = source_window(t, consts["freq"], consts["alpha"])
+        cos_t, sin_t = math.cos(w0 * t), math.sin(w0 * t)
+        return [
+            (win * amp) * cos_t,
+            (win * amp) * sin_t,
+            (dwin * amp) * cos_t - (win * amp * w0) * sin_t,
+            (dwin * amp) * sin_t + (win * amp * w0) * cos_t,
+        ]
+    g, dg = source_amplitudes(consts, t)
+    return [g] if kind == "linear" else [g, dg]
 
 
 def pack_facet_vector(vec, gdims):
@@ -104,36 +141,48 @@ def stage_fields(u0, v0, kvp, kvpp, alpha, beta):
     return un, vn
 
 
-def step_update(u0, v0, kvs, scal):
+def step_update(u0, v0, kvs, tail):
     """Final-stage step update from the slopes ``kvs`` in stage order.
-    ``scal`` tail (from index 3): [dt·Σb, cu_0..cu_{n-2}, db_0..db_{n-1}]."""
+    ``tail``: [dt·Σb, cu_0..cu_{n-2}, db_0..db_{n-1}]."""
     ns = len(kvs)
-    u1 = u0 + scal[3] * v0
+    u1 = u0 + tail[0] * v0
     for j in range(ns - 1):
-        u1 = u1 + scal[4 + j] * kvs[j]
+        u1 = u1 + tail[1 + j] * kvs[j]
     v1 = v0
     for i in range(ns):
-        v1 = v1 + scal[4 + (ns - 1) + i] * kvs[i]
+        v1 = v1 + tail[ns + i] * kvs[i]
     return u1, v1
 
 
-def stage_plain(u0, v0, kvp, kvpp, prev, F, inv_m, src_pf, abc_pf, scal, p, final):
-    """Plain torch version of the K2 kernel (kind ``linear``).
+def stage_plain(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final):
+    """Plain torch version of the K2 kernel for ``kind``.
 
-    ``scal``: host floats [alpha, beta, g] (+ the step-update tail when
-    ``final``). Returns kv, or (u1, v1) on the final stage."""
-    alpha, beta, g = scal[0], scal[1], scal[2]
-    un, vn = stage_fields(u0, v0, kvp, kvpp, alpha, beta)
-    acc = stiffness_plain([un], [F], p)
-    b = -acc + (g * unpack_facet_vector(src_pf) - unpack_facet_vector(abc_pf) * vn)
-    kv = b * inv_m
+    ``Fs``: the packed stiffness coefficients of un (and vn); ``dense``: the
+    tensors named by ``KIND_DENSE[kind]``; ``facets``: the packed vectors
+    named by ``KIND_FACET[kind]``. ``scal``: host floats [alpha, beta,
+    source_coefs...] (+ the step-update tail when ``final``). Returns kv, or
+    (u1, v1) on the final stage."""
+    nfa = len(facets)
+    un, vn = stage_fields(u0, v0, kvp, kvpp, scal[0], scal[1])
+    acc = stiffness_plain([un, vn][: KIND_FIELDS[kind]], Fs, p)
+    corr = -unpack_facet_vector(facets[-1]) * vn
+    for j in range(nfa - 1):
+        corr = corr + scal[2 + j] * unpack_facet_vector(facets[j])
+    if kind in NONLINEAR_KINDS:
+        m0, d2 = dense
+        kv = (d2 * (vn * vn) - acc + corr) / (m0 - d2 * un)
+    else:
+        (inv_m,) = dense
+        kv = (-acc + corr) * inv_m
     if not final:
         return kv
     kvs = [k for k in (prev, kvpp, kvp) if k is not None] + [kv]
-    return step_update(u0, v0, kvs, scal)
+    return step_update(u0, v0, kvs, scal[1 + nfa :])
 
 
-def _check_stage(u0, v0, kvp, kvpp, prev, F, inv_m, src_pf, abc_pf, scal, p, final):
+def _check_stage(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final):
+    if kind not in KIND_FIELDS:
+        raise ValueError(f"unknown stage kind {kind!r}; one of {sorted(KIND_FIELDS)}")
     gdims = tuple(u0.shape)
     if u0.dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported dtype {u0.dtype}; use float32 or float64")
@@ -144,33 +193,40 @@ def _check_stage(u0, v0, kvp, kvpp, prev, F, inv_m, src_pf, abc_pf, scal, p, fin
         raise ValueError("kvpp without kvp")
     if prev is not None and (kvpp is None or not final):
         raise ValueError("prev is only read by a final stage that also has kvpp")
-    state = [t for t in (u0, v0, kvp, kvpp, prev, inv_m) if t is not None]
+    if len(Fs) != KIND_FIELDS[kind]:
+        raise ValueError(f"kind {kind!r} takes {KIND_FIELDS[kind]} coefficients, got {len(Fs)}")
+    if len(dense) != len(KIND_DENSE[kind]) or len(facets) != len(KIND_FACET[kind]):
+        raise ValueError(
+            f"kind {kind!r} takes dense {KIND_DENSE[kind]} and facets {KIND_FACET[kind]}"
+        )
+    state = [t for t in (u0, v0, kvp, kvpp, prev) if t is not None] + list(dense)
     check_fields(state, gdims, u0.dtype, u0.device)
-    (ext,) = check_coeffs([F], gdims, grid, u0.dtype, u0.device)
+    exts = check_coeffs(Fs, gdims, grid, u0.dtype, u0.device)
     G0, G1, G2 = gdims
     want = {"xp": (2, G1, G2), "ye": (G0, 2, G2), "ze": (G0, G1, 2)}
-    for pf in (src_pf, abc_pf):
+    for pf in facets:
         for name, shape in want.items():
             check_fields([pf[name]], shape, u0.dtype, u0.device)
     ns = 1 + sum(t is not None for t in (kvp, kvpp, prev))
-    n_scal = 3 + 2 * ns if final else 3
+    n_scal = 1 + len(facets) + (2 * ns if final else 0)
     if len(scal) != n_scal:
         raise ValueError(f"scal has {len(scal)} entries, expected {n_scal}")
-    return ext
+    return exts
 
 
-def stage_apply(u0, v0, kvp, kvpp, prev, F, inv_m, src_pf, abc_pf, scal, p, final):
-    """One linear RK stage on lattice fields [G0, G1, G2].
+def stage_apply(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final):
+    """One RK stage of ``kind`` on lattice fields [G0, G1, G2].
 
     ``kvp``/``kvpp``: slopes of the two previous stages (None if absent);
     ``prev``: the slope three stages back, read only by the final RK4 stage.
-    CUDA tensors launch the K2 kernel (``csrc/stage.cu``) on the current
-    stream; CPU tensors run ``stage_plain``. The final stage writes u1/v1 into
-    new buffers (never onto u0/v0, which other threads are still reading).
+    Other arguments as ``stage_plain``. CUDA tensors launch the K2 kernel
+    (``csrc/stage.cu``) on the current stream; CPU tensors run
+    ``stage_plain``. The final stage writes u1/v1 into new buffers (never onto
+    u0/v0, which other threads are still reading).
     """
-    ext = _check_stage(u0, v0, kvp, kvpp, prev, F, inv_m, src_pf, abc_pf, scal, p, final)
+    exts = _check_stage(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final)
     if u0.device.type == "cpu":
-        return stage_plain(u0, v0, kvp, kvpp, prev, F, inv_m, src_pf, abc_pf, scal, p, final)
+        return stage_plain(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final)
     if u0.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {u0.device}")
     from .._build import library
@@ -180,71 +236,78 @@ def stage_apply(u0, v0, kvp, kvpp, prev, F, inv_m, src_pf, abc_pf, scal, p, fina
         outs = (None, torch.empty_like(u0), torch.empty_like(v0))
     else:
         outs = (torch.empty_like(u0), None, None)
-    ptrs = pointer_array(
-        [u0, v0, kvp, kvpp, prev, F["F0"], F["F1"], F["F2"], inv_m]
-        + [pf[n] for pf in (src_pf, abc_pf) for n in ("xp", "ye", "ze")]
-        + list(outs)
-    )
+    # fixed operand slots: 2 coefficient sets, 2 dense fields, 5 facets
+    coeffs = [F[f"F{a}"] for F in Fs for a in range(3)]
+    coeffs += [None] * (6 - len(coeffs))
+    dense_p = list(dense) + [None] * (2 - len(dense))
+    facet_p = [pf[n] for pf in facets for n in ("xp", "ye", "ze")]
+    facet_p += [None] * (15 - len(facet_p))
+    ptrs = pointer_array([u0, v0, kvp, kvpp, prev] + coeffs + dense_p + facet_p + list(outs))
+    ext = [e for ex in exts for e in ex]
+    ext += [1] * (6 - len(ext))
     gd, K1, stream, dev = launch_args(u0, p)
-    rc = lib.fus_stage_linear(
-        DTYPE_CODES[u0.dtype], ptrs, (ctypes.c_int * 3)(*ext), gd, p, K1,
+    rc = lib.fus_stage(
+        KIND_CODES[kind], DTYPE_CODES[u0.dtype], ptrs, (ctypes.c_int * 6)(*ext), gd, p, K1,
         (ctypes.c_double * len(scal))(*scal), len(scal), int(final), stream, dev,
     )
     if rc != 0:
         raise RuntimeError(f"K2 stage kernel launch failed: {lib.fus_error_string(rc).decode()}")
-    stage_apply.launches += 1
+    stage_apply.launches[kind] += 1
     return outs[0] if not final else (outs[1], outs[2])
 
 
-stage_apply.launches = 0
+# kernel launches per kind
+stage_apply.launches = collections.Counter()
 
 
 class FusedRKStage:
-    """Explicit-RK step built from one K2 launch per stage."""
+    """Explicit-RK step of one model kind built from one K2 launch per stage."""
 
     def __init__(self, gdims, p: int, kind: str, tables):
-        if kind not in KIND_FACET:
-            raise NotImplementedError(f"fused stage kind {kind!r} is not ported yet")
+        if kind not in KIND_FIELDS:
+            raise ValueError(f"unknown stage kind {kind!r}; one of {sorted(KIND_FIELDS)}")
         self.gdims = tuple(gdims)
         self.p = p
+        self.kind = kind
         self.a_tab, self.b_tab, self.c_tab = tables
         self.nstage = len(self.b_tab)
         if self.nstage > 4:
             raise NotImplementedError("the fused stage takes at most 4 RK stages")
 
-    def make_step(self, consts_to_F, consts_to_extras, stage_fn=stage_apply):
+    def make_step(self, consts_to_Fs, consts_to_extras, stage_fn=stage_apply):
         """Step function (consts, (u, v, t), dt) -> (u, v, t + dt) on lattice
         tensors [G0, G1, G2]; ``t`` and ``dt`` are host floats.
 
-        ``consts_to_F(consts)``: the packed stiffness coefficient;
-        ``consts_to_extras(consts)``: ([inv_m], [src_pf, abc_pf]).
-        ``stage_fn`` is ``stage_apply``, or ``stage_plain`` to run the plain
-        path on any device. Scalars (α, β, g(t), step weights) are formed on
-        the host in float64 and passed to each launch as arguments."""
+        ``consts_to_Fs(consts)``: the packed stiffness coefficients, one per
+        field; ``consts_to_extras(consts)``: (dense, packed facets) in
+        ``KIND_DENSE``/``KIND_FACET`` order. ``stage_fn`` is ``stage_apply``,
+        or ``stage_plain`` to run the plain path on any device. Scalars (α, β,
+        source coefficients, step weights) are formed on the host in float64
+        and passed to each launch as arguments."""
         a_t, b_t, c_t = self.a_tab, self.b_tab, self.c_tab
-        n, p = self.nstage, self.p
+        n, p, kind = self.nstage, self.p, self.kind
 
         def step(consts, carry, dtn):
             u0, v0, t = carry
-            F = consts_to_F(consts)
-            (inv_m,), (src_pf, abc_pf) = consts_to_extras(consts)
+            Fs = consts_to_Fs(consts)
+            dense, facets = consts_to_extras(consts)
             kvs = []
             for i in range(n):
                 kvp = kvs[i - 1] if i >= 1 else None
                 kvpp = kvs[i - 2] if i >= 2 else None
                 alpha = a_t[i] * dtn
                 beta = (a_t[i] * a_t[i - 1] if i >= 1 else 0.0) * dtn * dtn
-                parts = [alpha, beta] + source_coefs(consts, t + c_t[i] * dtn)
+                parts = [alpha, beta] + source_coefs(kind, consts, t + c_t[i] * dtn)
                 if i < n - 1:
-                    kvs.append(stage_fn(u0, v0, kvp, kvpp, None, F, inv_m,
-                                        src_pf, abc_pf, parts, p, False))
+                    kvs.append(stage_fn(kind, u0, v0, kvp, kvpp, None, Fs, dense,
+                                        facets, parts, p, False))
                     continue
                 cu = [b_t[j + 1] * a_t[j + 1] * dtn * dtn for j in range(n - 1)]
                 db = [b_t[j] * dtn for j in range(n)]
                 parts += [float(np.sum(b_t)) * dtn] + cu + db
                 prev = kvs[i - 3] if i >= 3 else None
-                u1, v1 = stage_fn(u0, v0, kvp, kvpp, prev, F, inv_m,
-                                  src_pf, abc_pf, parts, p, True)
+                u1, v1 = stage_fn(kind, u0, v0, kvp, kvpp, prev, Fs, dense,
+                                  facets, parts, p, True)
             return u1, v1, t + dtn
 
         step.carry_shape = self.gdims

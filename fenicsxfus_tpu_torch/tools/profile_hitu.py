@@ -1,0 +1,101 @@
+"""Where the time of the HITU W-H101-WATER focused path goes, on one CUDA
+device: per-stage K2 ``focused`` times by CUDA events, the sensor gather,
+the host-clock step time of ``rk_record``, and a ``torch.profiler`` window
+of 10 ``rk_record`` steps (device busy share).
+
+    python3 fenicsxfus_tpu_torch/tools/profile_hitu.py
+
+Runs from any directory; it imports the package of the checkout it lies in.
+"""
+
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+from fenicsxfus_tpu_torch.drivers import hitu  # noqa: E402
+from fenicsxfus_tpu_torch.ops.stage import stage_apply  # noqa: E402
+
+
+def main() -> None:
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    model, _, dt, _ = hitu.build_model("W", "H101", "WATER", 80, f0=0.5e6, device=dev)
+    torch.cuda.synchronize()
+    print(f"setup {time.perf_counter() - t0:.2f} s, {model.number_of_dofs()} DOF", flush=True)
+    pts = hitu.axial_points("H101")
+    # past the source ramp, so no value is trivial
+    model.rk_record(0.0, 400 * dt, pts)
+    torch.cuda.synchronize()
+
+    # per-stage K2 times over 5 steps
+    events = {i: [] for i in range(4)}
+    count = [0]
+
+    def timed(*args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = stage_apply(*args)
+        b.record()
+        events[count[0] % 4].append((a, b))
+        count[0] += 1
+        return out
+
+    step = model.fused_step(stage_fn=timed)
+    gd = model.ops.gdims
+    u, v, t = model.u_n.view(gd), model.v_n.view(gd), model.t
+    for _ in range(5):
+        u, v, t = step(model.consts, (u, v, t), dt)
+    torch.cuda.synchronize()
+    per = [float(np.median([a.elapsed_time(b) for a, b in events[i]])) for i in range(4)]
+    print("K2 focused per stage (median of 5 steps, CUDA events): "
+          + " / ".join(f"{x:.3f}" for x in per) + f" ms; sum {sum(per):.3f} ms", flush=True)
+
+    # sensor gather
+    extract = model._record_plan(pts)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    extract(u)
+    a.record()
+    for _ in range(100):
+        extract(u)
+    b.record()
+    b.synchronize()
+    print(f"sensor gather: {a.elapsed_time(b) / 100 * 1e3:.2f} us per step (mean of 100)",
+          flush=True)
+
+    # host-clock step time of the recording loop, two 50-step windows
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.rk_record(model.t, model.t + 50 * dt, pts)
+        torch.cuda.synchronize()
+        print(f"rk_record 50 steps: {(time.perf_counter() - t1) / 50 * 1e3:.3f} ms per step "
+              "(host clock)", flush=True)
+
+    # profiler window: 10 steps of rk_record
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        model.rk_record(model.t, model.t + 10 * dt, pts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    dev_total, rows = 0.0, []
+    for e in prof.key_averages():
+        d = getattr(e, "self_device_time_total", None)
+        if d is None:
+            d = getattr(e, "self_cuda_time_total", 0.0)
+        if d and e.device_type is not None and "CUDA" in str(e.device_type):
+            rows.append((d, e.key, e.count))
+            dev_total += d
+    for d, k, c in sorted(rows, reverse=True)[:8]:
+        print(f"  device {d / 1e3:9.3f} ms  x{c:5d}  {k[:90]}")
+    print(f"profiled 10 steps: wall {wall * 1e3:.2f} ms, device busy {dev_total / 1e3:.2f} ms, "
+          f"busy share {dev_total / 1e3 / (wall * 1e3):.3f}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

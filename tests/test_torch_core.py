@@ -105,7 +105,10 @@ def test_unsupported_meshes_raise():
 def test_port_imports_no_jax():
     code = (
         "import sys; import fenicsxfus_tpu_torch, fenicsxfus_tpu_torch.convert, "
-        "fenicsxfus_tpu_torch._build, fenicsxfus_tpu_torch.analysis.error, chip_smoke; "
+        "fenicsxfus_tpu_torch._build, fenicsxfus_tpu_torch.analysis.error, "
+        "fenicsxfus_tpu_torch.analysis.analytical, fenicsxfus_tpu_torch.utils, "
+        "fenicsxfus_tpu_torch.models.lossy, fenicsxfus_tpu_torch.models.westervelt, "
+        "fenicsxfus_tpu_torch.models.focused, fenicsxfus_tpu_torch.drivers.hitu, chip_smoke; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -13,10 +13,22 @@ import numpy as np
 import pytest
 import torch
 
-from fenicsxfus_tpu_torch import LinearSpectralExplicit, create_box, tag_boundaries
+from fenicsxfus_tpu_torch import (
+    LinearSpectralExplicit,
+    WesterveltSpectralFocused,
+    create_box,
+    tag_boundaries,
+)
 from fenicsxfus_tpu_torch.convert import state_from_numpy
 from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
-from fenicsxfus_tpu_torch.ops.stage import pack_facet_vector, stage_apply, stage_plain
+from fenicsxfus_tpu_torch.ops.stage import (
+    KIND_DENSE,
+    KIND_FACET,
+    KIND_FIELDS,
+    pack_facet_vector,
+    stage_apply,
+    stage_plain,
+)
 from fenicsxfus_tpu_torch.ops.stiffness import (
     pack_const,
     pack_field,
@@ -27,6 +39,9 @@ from fenicsxfus_tpu_torch.ops.stiffness import (
 pytestmark = pytest.mark.gpu
 
 GRID = (9, 5, 7)
+# (5, 1, 1): one cell across y and z, as the channel runs of chip_smoke.py,
+# so every node lies on two facet planes and the stencil folds on itself
+GRIDS = [GRID, (5, 1, 1)]
 TOLS = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
@@ -43,10 +58,12 @@ def _rel(a, b) -> float:
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("degree", [2, 3, 4])
-def test_k1_matches_plain(degree, dtype, cuda):
-    lat = LatticeStiffness(GRID, degree, (0.1, 0.14, 0.07), dtype)
+@pytest.mark.parametrize("grid", GRIDS)
+def test_k1_matches_plain(grid, degree, dtype, cuda):
+    lat = LatticeStiffness(grid, degree, (0.1, 0.14, 0.07), dtype)
     rng = np.random.default_rng(degree)
-    Fs = [pack_const(lat, 1.7, cuda), pack_field(lat, rng.uniform(0.5, 2.0, 315), cuda)]
+    Fs = [pack_const(lat, 1.7, cuda),
+          pack_field(lat, rng.uniform(0.5, 2.0, int(np.prod(grid))), cuda)]
     xs = [torch.as_tensor(rng.standard_normal(lat.gdims), dtype=dtype, device=cuda)
           for _ in range(2)]
     for x_in, F_in in (([xs[0]], Fs[:1]), ([xs[1]], Fs[1:]), (xs, Fs)):
@@ -56,7 +73,7 @@ def test_k1_matches_plain(degree, dtype, cuda):
         assert _rel(y, stiffness_plain(x_in, F_in, degree)) < TOLS[dtype]
 
 
-def _stage_args(lat, rng, device, present, final, dg0):
+def _stage_args(kind, lat, rng, device, present, final, dg0):
     gd = lat.gdims
     dt = lat.dtype
 
@@ -72,10 +89,16 @@ def _stage_args(lat, rng, device, present, final, dg0):
 
     kvp, kvpp, prev = (field() if p else None for p in present)
     ns = 1 + sum(present)
-    scal = [0.3, 0.05, 1.7] + (list(rng.uniform(0.01, 1.0, 2 * ns)) if final else [])
-    F = pack_field(lat, rng.uniform(0.5, 2.0, 315), device) if dg0 else pack_const(lat, 1.7, device)
-    inv_m = torch.as_tensor(rng.uniform(0.5, 1.5, gd), dtype=dt, device=device)
-    return (field(), field(), kvp, kvpp, prev, F, inv_m, facets(), facets(), scal, lat.p, final)
+    nfa = len(KIND_FACET[kind])
+    scal = [0.3, 0.05] + list(rng.uniform(-2.0, 2.0, nfa - 1))
+    scal += list(rng.uniform(0.01, 1.0, 2 * ns)) if final else []
+    ncells = int(np.prod(lat.grid))
+    Fs = [pack_field(lat, rng.uniform(0.5, 2.0, ncells), device) if dg0 and f == 0
+          else pack_const(lat, 1.7 - 0.5 * f, device) for f in range(KIND_FIELDS[kind])]
+    dense = [torch.as_tensor(rng.uniform(0.0, 0.05, gd) if n == "d2" else rng.uniform(0.5, 1.5, gd),
+                             dtype=dt, device=device) for n in KIND_DENSE[kind]]
+    return (kind, field(), field(), kvp, kvpp, prev, Fs, dense,
+            [facets() for _ in range(nfa)], scal, lat.p, final)
 
 
 # (kvp, kvpp, prev) present, final: every stage shape of the RK1-RK4 tables
@@ -85,14 +108,16 @@ STAGES = [((0, 0, 0), False), ((1, 0, 0), False), ((1, 1, 0), False),
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("present,final", STAGES)
-def test_k2_matches_plain(present, final, dtype, cuda):
-    lat = LatticeStiffness(GRID, 4, (0.1, 0.14, 0.07), dtype)
+@pytest.mark.parametrize("kind", sorted(KIND_FIELDS))
+@pytest.mark.parametrize("grid", GRIDS)
+def test_k2_matches_plain(grid, kind, present, final, dtype, cuda):
+    lat = LatticeStiffness(grid, 4, (0.1, 0.14, 0.07), dtype)
     rng = np.random.default_rng(sum(present) + 4 * final)
     for dg0 in (False, True):
-        args = _stage_args(lat, rng, cuda, present, final, dg0)
-        before = stage_apply.launches
+        args = _stage_args(kind, lat, rng, cuda, present, final, dg0)
+        before = stage_apply.launches[kind]
         got = stage_apply(*args)
-        assert stage_apply.launches == before + 1
+        assert stage_apply.launches[kind] == before + 1
         ref = stage_plain(*args)
         for a, b in (zip(got, ref) if final else [(got, ref)]):
             assert _rel(a, b) < TOLS[dtype]
@@ -125,12 +150,37 @@ def test_model_on_gpu_matches_cpu(order, cuda):
     for m in models:
         assert m.step_kind == "fused"
         m.u_n, m.v_n = state_from_numpy(u0, v0, m.device)
-        before = stage_apply.launches
+        before = stage_apply.launches["linear"]
         u, v, _ = m.rk(0.0, 5e-8)
-        launched = stage_apply.launches - before
+        launched = stage_apply.launches["linear"] - before
         outs.append((u.cpu(), v.cpu(), launched, m.energy()))
     assert outs[0][2] == 0 and outs[1][2] == 5 * order
     assert _rel(outs[1][0], outs[0][0]) < 1e-12
     assert _rel(outs[1][1], outs[0][1]) < 1e-12
     assert abs(outs[1][3] - outs[0][3]) < 1e-12 * abs(outs[0][3])
 
+
+def test_focused_model_on_gpu_matches_cpu(cuda):
+    """The fp64 focused model (K2 kind ``focused``, heterogeneous medium, the
+    HITU facet layout) on the card and on the CPU, 5 RK4 steps."""
+    rng = np.random.default_rng(9)
+    c0, rho0 = rng.uniform(1400, 1600, 96), rng.uniform(900, 1100, 96)
+    models = []
+    for dev in ("cpu", cuda):
+        mesh = create_box((6, 4, 4), (0, 0, 0), (1.0, 0.5, 0.5))
+        tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12}, default=2)
+        models.append(WesterveltSpectralFocused(
+            mesh, None, 3, c0, rho0, 4e-3, 3.5, 0.5e6, 6e4, 1500.0, 4, 1e-8,
+            aperture_radius=0.2, focal_distance=0.6, center=np.array([0.0, 0.25, 0.25]),
+            dtype=torch.float64, device=dev))
+    u0, v0 = (rng.standard_normal(models[0].number_of_dofs()) for _ in range(2))
+    outs = []
+    for m in models:
+        assert m.step_kind == "fused"
+        m.u_n, m.v_n = state_from_numpy(u0, v0, m.device)
+        before = stage_apply.launches["focused"]
+        u, v, _ = m.rk(0.0, 5e-8)
+        outs.append((u.cpu(), v.cpu(), stage_apply.launches["focused"] - before))
+    assert outs[0][2] == 0 and outs[1][2] == 20
+    assert _rel(outs[1][0], outs[0][0]) < 1e-12
+    assert _rel(outs[1][1], outs[0][1]) < 1e-12
