@@ -31,15 +31,35 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    JAX package's committed run (``benchmarks/hitu/results/w_h101_water.npz``)
    and 3 further steps held against the unfused (K1) step;
 8. the O'Neil check of the focused source, ``drivers.hitu.validate_oneil``
-   at its defaults (H101, 0.35 MHz, nx=64, 5.7M DOF).
+   at its defaults (H101, 0.35 MHz, nx=64, 5.7M DOF);
+9. K4a/K4b (the two-kernel stiffness) against their plain versions, each
+   kernel alone and the pair against K1's plain version, fp32, on (9,5,7)
+   at p = 2, 3, 4 (constant and DG-0 coefficients, 1 and 2 fields), on
+   (41,1,1) and on the 104³ headline lattice with CUDA-event timings;
+10. K5a/K5b (the two-kernel RK stage) against their plain versions for all
+   four kinds, a non-final and a final stage, at (9,5,7) (constant and
+   DG-0), (41,1,1), (81,1,1), the HITU lattice (timed for every kind) and,
+   for ``linear``, the headline lattice (timed);
+11. the two-kernel pipeline's main path, with ``FUS_STAGE_V3=0`` and
+   ``FUS_V3=0`` set for the phase: HITU W-H101-WATER at the driver defaults
+   through K5a/K5b ``focused`` (peak held against the JAX package's run and
+   against phase 7's), the headline through K5 ``linear`` with ``energy()``
+   through K4a/K4b, and the lossy and Westervelt channel gates through K5,
+   each followed by 3 steps held against the plain (or unfused) path.
 
-The line before the last is one JSON object with the per-kernel numbers;
-the last line is ``{"ok": true, "device": {...}}``.
+Each phase prints its wall time. Every kernel wrapper counts its launches;
+the counts are set to 0 just before a main path runs and read just after.
+The line before the last is one JSON object with the per-kernel numbers
+(launches on the main path, error and times against the plain version, and
+the byte or operation floor of the timed call); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -51,6 +71,12 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-5  # fp32, sums of ~30 terms taken in another order than the plain version
 HEADLINE_NX = 104
 STEPS = 101
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): device memory
+# bytes/s and fp32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# two-kernel pipeline switches (read as the JAX package reads them)
+TWO_KERNEL_ENV = {"FUS_STAGE_V3": "0", "FUS_V3": "0"}
 
 
 def say(msg: str) -> None:
@@ -90,6 +116,119 @@ def rel_err(a, b) -> tuple[float, float]:
     return d / scale, d
 
 
+def nbytes(*objs) -> int:
+    """Bytes of the tensors in ``objs`` (nested in lists and dicts; None is
+    absent)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, dict):
+            total += nbytes(*o.values())
+        elif isinstance(o, (list, tuple)):
+            total += nbytes(*o)
+        elif o is not None:
+            total += o.numel() * o.element_size()
+    return total
+
+
+def stencil_flops(gdims, p: int, nf: int, axes) -> float:
+    """Floating-point operations of the stiffness stencil of ``nf`` fields
+    over ``axes``: per node and axis, 2N per cell holding the node (two at
+    an interface) plus the coefficient product."""
+    nodes = float(np.prod(gdims))
+    flops = 0.0
+    for a in axes:
+        n = (gdims[a] - 1) // p
+        flops += nodes * nf * (2 * (p + 1) + 1) * (1.0 + (n - 1) / gdims[a])
+    return flops
+
+
+STAGE_NODE_FLOPS = 16  # per node: the stage fields, facet terms and epilogue
+
+
+def floor_ms(read: int, written: int, flops: float) -> dict:
+    """The least time the card could take for a call that reads ``read``
+    bytes once, writes ``written`` bytes once and does ``flops`` fp32
+    operations: the larger of the two times, and which one it is."""
+    t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# ------------------------------------------------------------ launch counts
+
+
+def counts() -> dict:
+    """The launch count of every kernel wrapper: K1, K4a, K4b (ints) and K2,
+    K5a, K5b (per kind)."""
+    from fenicsxfus_tpu_torch.ops import stage, stage_ab, stiffness
+
+    return {"K1": stiffness.stiffness_apply.launches,
+            "K4a": stiffness.stiffness_axis0_apply.launches,
+            "K4b": stiffness.stiffness_axes12_apply.launches,
+            "K2": dict(stage.stage_apply.launches),
+            "K5a": dict(stage_ab.stage_a_apply.launches),
+            "K5b": dict(stage_ab.stage_b_apply.launches)}
+
+
+def reset_counts() -> None:
+    from fenicsxfus_tpu_torch.ops import stage, stage_ab, stiffness
+
+    for fn in (stiffness.stiffness_apply, stiffness.stiffness_axis0_apply,
+               stiffness.stiffness_axes12_apply):
+        fn.launches = 0
+    for fn in (stage.stage_apply, stage_ab.stage_a_apply, stage_ab.stage_b_apply):
+        fn.launches.clear()
+
+
+class Pipeline:
+    """The kernels one configuration of the port runs: its stage kernels
+    (one launch each per RK stage) and its stiffness kernels."""
+
+    def __init__(self, name, stage, stiffness):
+        self.name, self.stage, self.stiffness = name, stage, stiffness
+
+    def plain(self):
+        """The plain version of one stage on this pipeline."""
+        from fenicsxfus_tpu_torch.ops import stage, stage_ab
+
+        return stage_ab.stage_ab_plain if "K5a" in self.stage else stage.stage_plain
+
+    def check(self, c: dict, kind: str, stage_launches: int, stiffness_launches=None):
+        """Raise unless the counts ``c`` show ``stage_launches`` launches of
+        each of this pipeline's stage kernels for ``kind`` and none of the
+        other pipeline's; with ``stiffness_launches``, as many of each of its
+        stiffness kernels, and none of the others."""
+        for k in ("K2", "K5a", "K5b"):
+            want = {kind: stage_launches} if k in self.stage and stage_launches else {}
+            if c[k] != want:
+                raise AssertionError(f"{self.name}: {k} launched {c[k]}, expected {want}: {c}")
+        if stiffness_launches is not None:
+            for k in ("K1", "K4a", "K4b"):
+                want = stiffness_launches if k in self.stiffness else 0
+                if c[k] != want:
+                    raise AssertionError(f"{self.name}: {k} launched {c[k]}, expected {want}")
+
+
+ONE_KERNEL = Pipeline("one-kernel (K2, K1)", ("K2",), ("K1",))
+# selected by TWO_KERNEL_ENV
+TWO_KERNEL = Pipeline("two-kernel (K5a/K5b, K4a/K4b)", ("K5a", "K5b"), ("K4a", "K4b"))
+
+
+@contextlib.contextmanager
+def environment(env: dict):
+    """Set ``env`` in ``os.environ`` for the block, and restore it after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -116,9 +255,12 @@ def phase_build() -> None:
     path, seconds, log = _build.build()
     _build.library()
     say(f"[1] built {path.name} in {seconds:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"[1]   {line.strip()}")
+    entry = ""
+    for line in log.splitlines():  # ptxas -v: each kernel's registers, stack and spills
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            say(f"[1]   {entry}: {line.replace('ptxas info    :', '').strip()}")
 
 
 def _lattice(grid, p, dtype):
@@ -165,7 +307,8 @@ def phase_k1(device, card, grids, headline) -> dict:
                 say(f"[2] K1 headline {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
                     f"(median of 10, CUDA events; {card})")
                 if name == "const":
-                    out.update(ms=ms, plain_ms=pms)
+                    out.update(ms=ms, plain_ms=pms, **floor_ms(
+                        nbytes(xs[0], F), nbytes(xs[0]), stencil_flops(lat.gdims, p, 1, (0, 1, 2))))
         del xs
         torch.cuda.synchronize()
     return out
@@ -210,6 +353,30 @@ def _stage_inputs(kind, lat, device, gen, rng, final, scale, dg0=False):
     )
 
 
+def stage_floor(args: dict, kernel: str) -> dict:
+    """``floor_ms`` of one call of stage kernel ``kernel`` (K2, K5a or K5b)
+    on the operands ``args`` of ``_stage_inputs``: the tensors that kernel
+    reads, each once, and what it writes."""
+    from fenicsxfus_tpu_torch.ops.stage import KIND_FIELDS
+
+    nf = KIND_FIELDS[args["kind"]]
+    gd, p, u0 = tuple(args["u0"].shape), args["p"], args["u0"]
+    nodes = float(np.prod(gd))
+    if kernel == "K5a":  # u0, v0, kvp (two-field kinds), kvpp, F0 -> yA
+        kvp = args["kvp"] if nf > 1 else None
+        read = nbytes(u0, args["v0"], kvp, args["kvpp"], [F["F0"] for F in args["Fs"]])
+        return floor_ms(read, nbytes(u0), stencil_flops(gd, p, nf, (0,)) + 3 * nf * nodes)
+    state = nbytes(u0, args["v0"], args["kvp"], args["kvpp"], args["prev"], args["dense"],
+                   args["facets"])
+    if kernel == "K2":
+        read, axes = state + nbytes(args["Fs"]), (0, 1, 2)
+    else:  # K5b: + yA, F1 and F2
+        read = state + nbytes(u0, [[F["F1"], F["F2"]] for F in args["Fs"]])
+        axes = (1, 2)
+    written = nbytes(u0) * (2 if args["final"] else 1)
+    return floor_ms(read, written, stencil_flops(gd, p, nf, axes) + STAGE_NODE_FLOPS * nodes)
+
+
 def phase_k2(device, card, grids, headline) -> dict:
     """K2 against its plain version, non-final and final stage."""
     import torch
@@ -238,7 +405,8 @@ def phase_k2(device, card, grids, headline) -> dict:
                 say(f"[3] K2 headline {kind}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
                     f"(median of 10, CUDA events; {card})")
                 if not final:
-                    out = {"max_abs_err": worst[1], "rel_err": worst[0], "ms": ms, "plain_ms": pms}
+                    out = {"max_abs_err": worst[1], "rel_err": worst[0], "ms": ms, "plain_ms": pms,
+                           **stage_floor(args, "K2")}
             del args, got, ref
             torch.cuda.synchronize()
     return out
@@ -278,14 +446,13 @@ def phase_planewave(device) -> None:
         raise AssertionError(f"planewave rel-L2 {err:.3e} >= 1e-3")
 
 
-def phase_headline(device, card, nx) -> dict:
-    """bench.py's problem through the port's entry points."""
+def phase_headline(device, card, nx, pipe: Pipeline = ONE_KERNEL, tag: str = "[5]") -> dict:
+    """bench.py's problem through the port's entry points, on ``pipe``'s
+    kernels (the caller sets its switches)."""
     import torch
 
     import fenicsxfus_tpu_torch as ft
     from fenicsxfus_tpu_torch.models.common import run_steps, step_sizes
-    from fenicsxfus_tpu_torch.ops.stage import stage_apply, stage_plain
-    from fenicsxfus_tpu_torch.ops.stiffness import stiffness_apply
 
     degree, c0, rho0, f0, p0, L = 4, 1500.0, 1000.0, 0.5e6, 60000.0, 0.12
     t0 = time.perf_counter()
@@ -299,28 +466,28 @@ def phase_headline(device, card, nx) -> dict:
     setup = time.perf_counter() - t0
     ndofs = model.number_of_dofs()
     nsteps = len(step_sizes(0.0, STEPS * dt, dt))
-    say(f"[5] headline nx={nx}: {ndofs} DOF, {model.step_kind} step, setup {setup:.1f} s")
+    say(f"{tag} headline nx={nx} on the {pipe.name} pipeline: {ndofs} DOF, {model.step_kind} "
+        f"step, setup {setup:.1f} s")
 
     # --- the main path: counts from 0 just before, read just after
-    stiffness_apply.launches = 0
-    stage_apply.launches.clear()
+    reset_counts()
     t0 = time.perf_counter()
     u, v, t = model.rk(0.0, STEPS * dt)
     torch.cuda.synchronize()
     solve = time.perf_counter() - t0
     energy = model.energy()
     torch.cuda.synchronize()
-    launches = {"stage": dict(stage_apply.launches), "stiffness": stiffness_apply.launches}
+    launches = counts()
 
     checksum = float(u.double().abs().sum())
     rate = ndofs * nsteps / solve / 1e9
-    say(f"[5] {nsteps} RK4 steps: solve {solve:.3f} s, {rate:.4f} GDOF-RK4-updates/s, "
+    say(f"{tag} {nsteps} RK4 steps: solve {solve:.3f} s, {rate:.4f} GDOF-RK4-updates/s, "
         f"setup {setup:.1f} s ({card})")
-    say(f"[5] checksum sum|u| = {checksum:.6e}, energy = {energy:.6e}, launches {launches}")
-    if model.step_kind != "fused" or launches["stage"] != {"linear": 4 * nsteps}:
-        raise AssertionError(f"headline did not run through K2 once per stage: {launches}")
-    if launches["stiffness"] < 1:
-        raise AssertionError("the energy diagnostic did not run through K1")
+    say(f"{tag} checksum sum|u| = {checksum:.6e}, energy = {energy:.6e}, launches {launches}")
+    if model.step_kind != "fused":
+        raise AssertionError("the headline model did not take the fused step")
+    # the stage kernels once per RK stage, and energy() through the stiffness kernels once
+    pipe.check(launches, "linear", 4 * nsteps, stiffness_launches=1)
     if not (np.isfinite(checksum) and checksum > 0 and np.isfinite(energy) and energy > 0):
         raise AssertionError("headline state is not finite and nonzero")
 
@@ -328,11 +495,11 @@ def phase_headline(device, card, nx) -> dict:
     gd = model.ops.gdims
     dts = [dt] * 3
     uk, vk, _ = run_steps(model.fused_step(), model.consts, u.view(gd), v.view(gd), t, dts)
-    up, vp, _ = run_steps(model.fused_step(stage_fn=stage_plain), model.consts,
+    up, vp, _ = run_steps(model.fused_step(stage_fn=pipe.plain()), model.consts,
                           u.view(gd), v.view(gd), t, dts)
     torch.cuda.synchronize()
     worst = max(rel_err(uk, up)[0], rel_err(vk, vp)[0])
-    say(f"[5] 3 steps, K2 path vs plain path: max rel diff {worst:.3e} (gate 1e-4)")
+    say(f"{tag} 3 steps, kernel path vs plain path: max rel diff {worst:.3e} (gate 1e-4)")
     if not worst <= 1e-4:
         raise AssertionError(f"headline kernel path disagrees with the plain path: {worst:.3e}")
     return {"launches": launches, "rate": rate, "solve_s": solve, "setup_s": setup}
@@ -383,24 +550,24 @@ def phase_kinds(device, card) -> dict:
                         f"{pms:.3f} ms (median of 10, CUDA events; {card})")
                     if not final:
                         out[kind] = {"max_abs_err": worst[1], "rel_err": worst[0],
-                                     "ms": ms, "plain_ms": pms}
+                                     "ms": ms, "plain_ms": pms, **stage_floor(args, "K2")}
                 del args, got, ref
                 torch.cuda.synchronize()
     return out
 
 
-def phase_channel(device) -> dict:
+def phase_channel(device, pipe: Pipeline = ONE_KERNEL, tag: str = "[6]") -> dict:
     """The lossy and Westervelt models through ``rk`` in the 3D channel
     (source at x=0, ABC at x=L: the 1D problem) against the reference's 1D
-    gates, fp32, then 3 steps from the reached state held against the plain
-    path; returns the K2 launches of each run."""
+    gates, fp32, on ``pipe``'s stage kernels, then 3 steps from the reached
+    state held against the plain path; returns the stage launches of each
+    run."""
     import torch
 
     import fenicsxfus_tpu_torch as ft
     from fenicsxfus_tpu_torch.analysis.analytical import damped_planewave, fubini
     from fenicsxfus_tpu_torch.analysis.error import relative_l2_error
     from fenicsxfus_tpu_torch.models.common import run_steps, step_sizes
-    from fenicsxfus_tpu_torch.ops.stage import stage_apply, stage_plain
 
     f0, c0, u0, L = 10.0, 1.0, 1.0, 1.0
     launches = {}
@@ -428,62 +595,64 @@ def phase_channel(device) -> dict:
                                                   p0, c0, 4, dt, dtype=torch.float32,
                                                   device=device)
             exact = lambda x, t: fubini(x[0], t, c0, f0, p0, rho0, beta0)  # noqa: E731
-        stage_apply.launches.clear()
+        reset_counts()
         t0 = time.perf_counter()
         u, v, tf = model.rk(0.0, tend)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches[kind] = dict(stage_apply.launches)
+        c = counts()
+        launches[kind] = {k: c[k].get(kind, 0) for k in pipe.stage}
         nsteps = len(step_sizes(0.0, tend, dt))
         err = relative_l2_error(model.ops, u, lambda x: exact(x, tf))
-        say(f"[6] {kind} channel fp32: {model.step_kind} step, {nsteps} steps in {seconds:.2f} s, "
+        say(f"{tag} {kind} channel fp32: {model.step_kind} step, {nsteps} steps in {seconds:.2f} s, "
             f"rel-L2 = {err:.3e} (gate {gate:g}), launches {launches[kind]}")
-        if model.step_kind != "fused" or launches[kind] != {kind: 4 * nsteps}:
-            raise AssertionError(f"the {kind} run did not go through K2 once per stage")
+        if model.step_kind != "fused":
+            raise AssertionError(f"the {kind} channel model did not take the fused step")
+        pipe.check(c, kind, 4 * nsteps)
         if not err < gate:
             raise AssertionError(f"{kind} channel rel-L2 {err:.3e} >= {gate:g}")
         # 3 more steps at this shape: the kernel path against the plain path
         gd, dts = model.ops.gdims, [dt] * 3
         uk, vk, _ = run_steps(model.fused_step(), model.consts, u.view(gd), v.view(gd), tf, dts)
-        up, vp, _ = run_steps(model.fused_step(stage_fn=stage_plain), model.consts,
+        up, vp, _ = run_steps(model.fused_step(stage_fn=pipe.plain()), model.consts,
                               u.view(gd), v.view(gd), tf, dts)
         torch.cuda.synchronize()
         worst = max(rel_err(uk, up)[0], rel_err(vk, vp)[0])
-        say(f"[6] {kind} channel, 3 steps, K2 path vs plain path: max rel diff {worst:.3e} "
-            f"(gate 1e-4)")
+        say(f"{tag} {kind} channel, 3 steps, kernel path vs plain path: max rel diff "
+            f"{worst:.3e} (gate 1e-4)")
         if not worst <= 1e-4:
             raise AssertionError(f"{kind} channel kernel path disagrees with the plain path: "
                                  f"{worst:.3e}")
-    return {k: n[k] for k, n in launches.items()}
+    return launches
 
 
-def phase_hitu(device, card) -> dict:
-    """The slice's main path: HITU W-H101-WATER at the driver defaults."""
+def phase_hitu(device, card, pipe: Pipeline = ONE_KERNEL, tag: str = "[7]",
+               k2_peak: float | None = None) -> dict:
+    """HITU W-H101-WATER at the driver defaults on ``pipe``'s kernels; with
+    ``k2_peak`` (phase 7's focal peak), its peak is also held against it."""
     import torch
 
     from fenicsxfus_tpu_torch.drivers import hitu
     from fenicsxfus_tpu_torch.models.common import run_steps
-    from fenicsxfus_tpu_torch.ops.stage import stage_apply
-    from fenicsxfus_tpu_torch.ops.stiffness import stiffness_apply
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     # --- the main path: counts from 0 just before, read just after
-    stage_apply.launches.clear()
-    stiffness_apply.launches = 0
+    reset_counts()
     res = hitu.run("W", "H101", "WATER", device=device)
     torch.cuda.synchronize()
-    launches = {"stage": dict(stage_apply.launches), "stiffness": stiffness_apply.launches}
+    launches = counts()
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     model = res.model
     ndofs = model.number_of_dofs()
     rate = ndofs * res.nsteps / res.solve_s / 1e9
-    say(f"[7] HITU W-H101-WATER: {ndofs} DOF, {res.nsteps} RK4 steps, {model.step_kind} step, "
-        f"launches {launches}")
-    say(f"[7] setup {res.setup_s:.2f} s, solve {res.solve_s:.3f} s, {rate:.4f} "
+    say(f"{tag} HITU W-H101-WATER on the {pipe.name} pipeline: {ndofs} DOF, {res.nsteps} RK4 "
+        f"steps, {model.step_kind} step, launches {launches}")
+    say(f"{tag} setup {res.setup_s:.2f} s, solve {res.solve_s:.3f} s, {rate:.4f} "
         f"GDOF-RK4-updates/s, device memory peak {peak_gib:.3f} GiB ({card})")
-    if model.step_kind != "fused" or launches["stage"] != {"focused": 4 * res.nsteps}:
-        raise AssertionError(f"HITU did not run through K2 focused 4 times per step: {launches}")
+    if model.step_kind != "fused":
+        raise AssertionError("the HITU model did not take the fused step")
+    pipe.check(launches, "focused", 4 * res.nsteps, stiffness_launches=0)
     amp, x = res.amplitude, res.x
     if amp.shape != (161,) or not np.all(np.isfinite(amp)):
         raise AssertionError("HITU axial amplitude is not 161 finite values")
@@ -492,25 +661,36 @@ def phase_hitu(device, card) -> dict:
     ref_amp, ref_x = ref["amplitude"], ref["x"]
     i_pk, i_ref = int(np.argmax(amp)), int(np.argmax(ref_amp))
     rel_peak = (amp[i_pk] - ref_amp[i_ref]) / ref_amp[i_ref]
-    say(f"[7] focal peak {amp[i_pk]:.6e} Pa at x = {x[i_pk]*1e3:.2f} mm (sensor {i_pk}); "
+    say(f"{tag} focal peak {amp[i_pk]:.6e} Pa at x = {x[i_pk]*1e3:.2f} mm (sensor {i_pk}); "
         f"JAX package's run {ref_amp[i_ref]:.6e} Pa at {ref_x[i_ref]*1e3:.2f} mm (sensor {i_ref}); "
         f"relative difference {rel_peak:.6e}, axial profile max rel diff "
         f"{np.max(np.abs(amp - ref_amp)) / ref_amp[i_ref]:.3e}")
     if not (abs(rel_peak) < 0.02 and abs(i_pk - i_ref) <= 1):
         raise AssertionError("HITU focal peak misses the JAX package's run (2%, ±1 sensor)")
+    if k2_peak is not None:
+        rel_k2 = (amp[i_pk] - k2_peak) / k2_peak
+        say(f"{tag} focal peak against phase [7]'s one-kernel run {k2_peak:.6e} Pa: relative "
+            f"difference {rel_k2:.3e} (gate 1e-3)")
+        if not abs(rel_k2) < 1e-3:
+            raise AssertionError(f"HITU focal peak differs from the one-kernel run: {rel_k2:.3e}")
 
-    # --- 3 more steps from the reached state: fused K2 vs the unfused (K1) step
+    # --- 3 more steps from the reached state: the fused step vs the unfused
+    # step (its stiffness kernels once per stage)
     gd = model.ops.gdims
     u, v, t, dts = model.u_n, model.v_n, model.t, [model.dt] * 3
     uk, vk, _ = run_steps(model.fused_step(), model.consts, u.view(gd), v.view(gd), t, dts)
+    reset_counts()
     uu, vu, _ = run_steps(model.unfused_step(), model.consts, u, v, t, dts)
     torch.cuda.synchronize()
+    unfused = counts()
     worst = max(rel_err(uk.reshape(-1), uu)[0], rel_err(vk.reshape(-1), vu)[0])
-    say(f"[7] 3 steps, fused K2 path vs unfused K1 path: max rel diff {worst:.3e} (gate 1e-4)")
+    say(f"{tag} 3 steps, fused path vs unfused path: max rel diff {worst:.3e} (gate 1e-4); "
+        f"unfused launches {unfused}")
     if not worst <= 1e-4:
         raise AssertionError(f"HITU fused path disagrees with the unfused path: {worst:.3e}")
+    pipe.check(unfused, "focused", 0, stiffness_launches=4 * len(dts))
     return {"launches": launches, "rate": rate, "solve_s": res.solve_s, "setup_s": res.setup_s,
-            "peak_gib": peak_gib}
+            "peak_gib": peak_gib, "peak_pa": float(amp[i_pk])}
 
 
 def phase_oneil(device) -> None:
@@ -535,6 +715,168 @@ def phase_oneil(device) -> None:
         raise AssertionError("O'Neil gate failed")
 
 
+def phase_k4(device, card) -> dict:
+    """K4a and K4b against their plain versions, each alone and the pair
+    against K1's plain version; timings at the headline."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
+    from fenicsxfus_tpu_torch.ops.stiffness import (
+        pack_const, pack_field, stiffness_axes12_apply, stiffness_axes12_plain,
+        stiffness_axis0_apply, stiffness_axis0_plain, stiffness_plain,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device=device).manual_seed(9)
+    headline = ((HEADLINE_NX,) * 3, 4)
+    # unit cells and coefficients at the small grids (no mass term to hide
+    # behind, but the stiffness alone is all there is here); the headline
+    # lattice and coefficient of phase [2]
+    grids = [((9, 5, 7), p) for p in (2, 3, 4)] + [((41, 1, 1), 4), headline]
+    out = {}
+    for grid, p in grids:
+        if (grid, p) == headline:
+            lat, c = _lattice(grid, p, torch.float32), 1.0 / 1000.0
+        else:
+            lat, c = LatticeStiffness(grid, p, (1.0, 1.0, 1.0), torch.float32), 1.0
+        coeffs = {"const": pack_const(lat, c, device),
+                  "dg0": pack_field(lat, rng.uniform(0.5, 2.0, int(np.prod(grid))) * c, device)}
+        xs = [torch.randn(lat.gdims, generator=gen, device=device) for _ in range(2)]
+        cases = [(name, [xs[0]], [F]) for name, F in coeffs.items()]
+        if (grid, p) != headline:
+            cases.append(("2 fields", xs, [coeffs["const"], coeffs["dg0"]]))
+        for name, x_in, F_in in cases:
+            yA = stiffness_axis0_apply(x_in, F_in, p)
+            yA_ref = stiffness_axis0_plain(x_in, F_in, p)
+            y = stiffness_axes12_apply(x_in, F_in, yA.clone(), p)
+            y_ref = stiffness_axes12_plain(x_in, F_in, yA.clone(), p)
+            whole = stiffness_plain(x_in, F_in, p)
+            torch.cuda.synchronize()
+            errs = {"K4a": rel_err(yA, yA_ref), "K4b": rel_err(y, y_ref),
+                    "K4a+K4b vs K1 plain": rel_err(y, whole)}
+            say(f"[9] K4 grid={grid} p={p} {name}: " + ", ".join(
+                f"{k} {v[0]:.3e}" for k, v in errs.items()))
+            bad = {k: v[0] for k, v in errs.items() if not v[0] <= TOL}
+            if bad:
+                raise AssertionError(f"K4 disagrees with its plain version: {bad} > {TOL}")
+            if (grid, p) == headline and name == "const":
+                out = {"K4a": {"max_abs_err": errs["K4a"][1]}, "K4b": {"max_abs_err": errs["K4b"][1]}}
+        if (grid, p) == headline:
+            for name, F in coeffs.items():
+                x = [xs[0]]
+                yA = stiffness_axis0_apply(x, [F], p)
+                times = {
+                    "K4a": (cuda_median_ms(lambda: stiffness_axis0_apply(x, [F], p)),
+                            cuda_median_ms(lambda: stiffness_axis0_plain(x, [F], p))),
+                    # in place on one scratch yA, as the two-kernel path runs it
+                    "K4b": (cuda_median_ms(lambda: stiffness_axes12_apply(x, [F], yA, p)),
+                            cuda_median_ms(lambda: stiffness_axes12_plain(x, [F], yA, p))),
+                }
+                for k, (ms, pms) in times.items():
+                    say(f"[9] {k} headline {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
+                        f"(median of 10, CUDA events; {card})")
+                if name == "const":
+                    xb, gd = nbytes(xs[0]), lat.gdims
+                    out["K4a"].update(ms=times["K4a"][0], plain_ms=times["K4a"][1], **floor_ms(
+                        xb + nbytes(F["F0"]), xb, stencil_flops(gd, p, 1, (0,))))
+                    out["K4b"].update(ms=times["K4b"][0], plain_ms=times["K4b"][1], **floor_ms(
+                        2 * xb + nbytes(F["F1"], F["F2"]), xb, stencil_flops(gd, p, 1, (1, 2))))
+                del yA
+        del xs
+        torch.cuda.synchronize()
+    say(f"[9] done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_k5(device, card) -> dict:
+    """K5a and K5b against their plain versions for all four kinds (K5b on
+    K5a's output, and the pair against K2's plain version), a non-final and
+    a final stage; timings at the HITU lattice (every kind) and at the
+    headline (``linear``)."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
+    from fenicsxfus_tpu_torch.ops.stage import KIND_FIELDS, stage_plain
+    from fenicsxfus_tpu_torch.ops.stage_ab import (
+        stage_a_apply, stage_a_plain, stage_b_apply, stage_b_plain,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(10)
+    gen = torch.Generator(device=device).manual_seed(10)
+    headline = (HEADLINE_NX,) * 3
+    # (9,5,7) with both coefficient forms, the channel grids (one cell across
+    # y and z), the HITU lattice, and for linear the headline lattice; unit
+    # cells except at the headline (phase [3]'s lattice and coefficient)
+    cases = [((9, 5, 7), False), ((9, 5, 7), True), ((41, 1, 1), False), ((81, 1, 1), True),
+             (HITU_GRID, False)]
+    out = {}
+    for kind in sorted(KIND_FIELDS):
+        for grid, dg0 in cases + ([(headline, False)] if kind == "linear" else []):
+            if grid == headline:
+                lat, scale = _lattice(grid, 4, torch.float32), 1.0 / 1000.0
+            else:
+                lat, scale = LatticeStiffness(grid, 4, (1.0, 1.0, 1.0), torch.float32), 1.0
+            for final in (False, True):
+                args = _stage_inputs(kind, lat, device, gen, rng, final, scale=scale, dg0=dg0)
+                a_args = {k: args[k] for k in ("kind", "u0", "v0", "kvp", "kvpp", "Fs", "scal", "p")}
+                yA = stage_a_apply(**a_args)
+                yA_ref = stage_a_plain(**a_args)
+                got = stage_b_apply(yA=yA, **args)
+                ref = stage_b_plain(yA=yA, **args)
+                whole = stage_plain(**args)
+                torch.cuda.synchronize()
+                pairs = list(zip(got, ref, whole)) if final else [(got, ref, whole)]
+                errs = {"K5a": rel_err(yA, yA_ref),
+                        "K5b": max(rel_err(a, b) for a, b, _ in pairs),
+                        "K5a+K5b vs K2 plain": max(rel_err(a, c) for a, _, c in pairs)}
+                stage = "final" if final else "non-final"
+                coeff = "DG-0" if dg0 else "const"
+                say(f"[10] K5 {kind} grid={grid} p=4 {coeff} {stage}: " + ", ".join(
+                    f"{k} {v[0]:.3e}" for k, v in errs.items()))
+                bad = {k: v[0] for k, v in errs.items() if not v[0] <= TOL}
+                if bad:
+                    raise AssertionError(f"K5 {kind} disagrees with its plain version: {bad}")
+                timed = grid == HITU_GRID or grid == headline
+                if timed:
+                    times = {
+                        "K5a": (cuda_median_ms(lambda: stage_a_apply(**a_args)),
+                                cuda_median_ms(lambda: stage_a_plain(**a_args))),
+                        "K5b": (cuda_median_ms(lambda: stage_b_apply(yA=yA, **args)),
+                                cuda_median_ms(lambda: stage_b_plain(yA=yA, **args))),
+                    }
+                    where = "headline" if grid == headline else "HITU lattice"
+                    for k, (ms, pms) in times.items():
+                        say(f"[10] {k} {kind} {where} {stage}: kernel {ms:.3f} ms, plain "
+                            f"{pms:.3f} ms (median of 10, CUDA events; {card})")
+                    # the entry of the kernels line: the shape of the kind's
+                    # main path (the headline for linear), a non-final stage
+                    if not final and (grid == headline or kind != "linear"):
+                        out[kind] = {k: {"max_abs_err": errs[k][1], "ms": ms, "plain_ms": pms,
+                                         **stage_floor(args, k)}
+                                     for k, (ms, pms) in times.items()}
+                del args, a_args, yA, yA_ref, got, ref, whole
+                torch.cuda.synchronize()
+    say(f"[10] done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_two_kernel(device, card, k2_peak: float) -> dict:
+    """The two-kernel pipeline's main path with its switches set for the
+    phase: HITU, the headline and the channel gates."""
+    t_phase = time.perf_counter()
+    with environment(TWO_KERNEL_ENV):
+        say(f"[11] switches {TWO_KERNEL_ENV}")
+        hitu_run = phase_hitu(device, card, TWO_KERNEL, "[11]", k2_peak=k2_peak)
+        say(f"[11] HITU done at {time.perf_counter() - t_phase:.1f} s")
+        headline = phase_headline(device, card, HEADLINE_NX, TWO_KERNEL, "[11]")
+        say(f"[11] headline done at {time.perf_counter() - t_phase:.1f} s")
+        channel = phase_channel(device, TWO_KERNEL, "[11]")
+    say(f"[11] done in {time.perf_counter() - t_phase:.1f} s")
+    return {"hitu": hitu_run, "headline": headline, "channel": channel}
+
+
 def main() -> int:
     import torch
 
@@ -556,26 +898,47 @@ def main() -> int:
     channel = phase_channel(device)
     hitu_run = phase_hitu(device, card)
     phase_oneil(device)
-    launches = {**channel, "focused": hitu_run["launches"]["stage"]["focused"]}
-    kernels = [
-        {"name": "stiffness_apply (K1)", "route": "cuda",
-         "source": "fenicsxfus_tpu_torch/csrc/stiffness.cu",
-         "replaces": "fenicsxfus_tpu/ops/pallas_v3.py:276",
-         "launches": run["launches"]["stiffness"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "stage_apply linear (K2)", "route": "cuda",
-         "source": "fenicsxfus_tpu_torch/csrc/stage.cu",
-         "replaces": "fenicsxfus_tpu/ops/pallas_stage_v3.py:442",
-         "launches": run["launches"]["stage"]["linear"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-    ] + [
-        {"name": f"stage_apply {kind} (K2)", "route": "cuda",
-         "source": "fenicsxfus_tpu_torch/csrc/stage.cu",
-         "replaces": "fenicsxfus_tpu/ops/pallas_stage_v3.py:442",
-         "launches": launches[kind], "max_abs_err": kinds[kind]["max_abs_err"],
-         "ms": kinds[kind]["ms"], "plain_ms": kinds[kind]["plain_ms"]}
-        for kind in NEW_KINDS
-    ]
+    k4 = phase_k4(device, card)
+    k5 = phase_k5(device, card)
+    two = phase_two_kernel(device, card, hitu_run["peak_pa"])
+
+    # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
+    # from phase [11] (HITU for focused, the headline for linear and for the
+    # stiffness through energy(), the channels for lossy and westervelt)
+    def stage_launches(headline_run, channel_runs, hitu, k):
+        return {"linear": headline_run["launches"][k]["linear"],
+                **{kind: channel_runs[kind][k] for kind in ("lossy", "westervelt")},
+                "focused": hitu["launches"][k]["focused"]}
+
+    k2_launches = stage_launches(run, channel, hitu_run, "K2")
+    k5_launches = {k: stage_launches(two["headline"], two["channel"], two["hitu"], k)
+                   for k in ("K5a", "K5b")}
+    csrc = "fenicsxfus_tpu_torch/csrc/"
+
+    def entry(name, source, replaces, launches, m):
+        # no single PyTorch call computes any of these functions: library_ms is null
+        return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
+                "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": None}
+
+    kinds["linear"] = k2
+    kernels = [entry("stiffness_apply (K1)", "stiffness.cu", "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                     run["launches"]["K1"], k1)]
+    kernels += [entry(f"stage_apply {kind} (K2)", "stage.cu",
+                      "fenicsxfus_tpu/ops/pallas_stage_v3.py:442", k2_launches[kind], kinds[kind])
+                for kind in ("linear",) + NEW_KINDS]
+    kernels += [entry("stiffness_axis0 (K4a)", "stiffness_ab.cu",
+                      "fenicsxfus_tpu/ops/pallas_lattice.py:522",
+                      two["headline"]["launches"]["K4a"], k4["K4a"]),
+                entry("stiffness_axes12 (K4b)", "stiffness_ab.cu",
+                      "fenicsxfus_tpu/ops/pallas_lattice.py:572",
+                      two["headline"]["launches"]["K4b"], k4["K4b"])]
+    for k, fn, line in (("K5a", "stage_a", 276), ("K5b", "stage_b", 444)):
+        kernels += [entry(f"{fn} {kind} ({k})", "stage_ab.cu",
+                          f"fenicsxfus_tpu/ops/pallas_stage.py:{line}", k5_launches[k][kind],
+                          k5[kind][k])
+                    for kind in ("linear",) + NEW_KINDS]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,8 +10,13 @@ Ported so far: the explicit-RK models ``LinearSpectralExplicit``,
 ``LossySpectralExplicit``, ``WesterveltSpectralExplicit`` and
 ``WesterveltSpectralFocused`` on a uniform ``create_box`` lattice, with point
 sensors and in-loop recording (``rk_record``), the HITU focused-bowl driver
-(``drivers/hitu.py``), the K1 stiffness kernel (``ops/stiffness.py``) and the
-K2 fused RK-stage kernel for all four model kinds (``ops/stage.py``).
+(``drivers/hitu.py``), the K1 stiffness kernel (``ops/stiffness.py``), the
+K2 fused RK-stage kernel for all four model kinds (``ops/stage.py``), and the
+two-kernel pipeline of the JAX package: K4a/K4b, the stiffness split at the
+axis-0 / axes-1,2 boundary (``ops/stiffness.py``, selected by ``FUS_V3=0``),
+and K5a/K5b, the RK stage split the same way (``ops/stage_ab.py``, selected
+by ``FUS_STAGE_V3=0``). Entry points run on the card unless the caller asks
+for the CPU (``device="cpu"``).
 """
 
 from .core.mesh import Mesh, create_box, create_interval, create_rectangle, tag_boundaries  # noqa: F401

@@ -109,9 +109,15 @@ def library() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     lib.fus_stiffness_apply.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _LLP, _I, _DP, _P, _I]
-    lib.fus_stiffness_apply.restype = _I
+    lib.fus_stiffness_axis0.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _LLP, _I, _DP, _P, _I]
+    lib.fus_stiffness_axes12.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _P, _LLP, _I, _DP, _P,
+                                         _I]
     lib.fus_stage.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _I]
-    lib.fus_stage.restype = _I
+    lib.fus_stage_a.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _P, _I]
+    lib.fus_stage_b.argtypes = lib.fus_stage.argtypes
+    for name in ("fus_stiffness_apply", "fus_stiffness_axis0", "fus_stiffness_axes12",
+                 "fus_stage", "fus_stage_a", "fus_stage_b"):
+        getattr(lib, name).restype = _I
     lib.fus_error_string.argtypes = [_I]
     lib.fus_error_string.restype = ctypes.c_char_p
     return lib

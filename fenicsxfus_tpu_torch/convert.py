@@ -4,7 +4,8 @@ The JAX model's ``consts`` (read back as numpy, nested dicts included) map
 one to one onto the port's, with one layout change: the packed stiffness
 coefficient ``F2`` is stored transposed by the JAX package, [G0, n2|1, G1],
 and as [G0, G1, n2|1] by the port (every ``F_a`` of the port is the lattice
-shape with axis a replaced by n_a or 1). Scalars stay Python floats.
+shape with axis a replaced by n_a or 1). Scalars stay Python floats. Tensors
+go to the card unless ``device`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -12,14 +13,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils import resolve_device
+
 _F_KEYS = {"F0", "F1", "F2"}
 
 
 def _tensor(arr, device, dtype) -> torch.Tensor:
-    return torch.tensor(np.ascontiguousarray(arr), dtype=dtype, device=device)
+    return torch.tensor(np.ascontiguousarray(arr), dtype=dtype, device=resolve_device(device))
 
 
-def coeff_from_jax(F: dict, device="cpu", dtype=torch.float64) -> dict:
+def coeff_from_jax(F: dict, device="cuda", dtype=torch.float64) -> dict:
     """Packed {F0, F1, F2} of the JAX package → the port's layout."""
     return {
         "F0": _tensor(np.asarray(F["F0"]), device, dtype),
@@ -28,7 +31,7 @@ def coeff_from_jax(F: dict, device="cpu", dtype=torch.float64) -> dict:
     }
 
 
-def consts_from_numpy(consts: dict, device="cpu", dtype=torch.float64) -> dict:
+def consts_from_numpy(consts: dict, device="cuda", dtype=torch.float64) -> dict:
     """The JAX model's ``consts`` (numpy arrays, floats, nested dicts) as the
     port's: tensors of ``dtype`` on ``device``, F-packed coefficients in the
     port's layout, scalars as floats."""
@@ -46,7 +49,7 @@ def consts_from_numpy(consts: dict, device="cpu", dtype=torch.float64) -> dict:
     return out
 
 
-def state_from_numpy(u, v, device="cpu", dtype=torch.float64):
+def state_from_numpy(u, v, device="cuda", dtype=torch.float64):
     """The JAX model's state (u, v) as flat tensors of the port."""
     return (
         _tensor(np.asarray(u).reshape(-1), device, dtype),

@@ -1,4 +1,5 @@
-// Shared device code of the lattice kernels (K1 stiffness.cu, K2 stage.cu).
+// Shared device code of the lattice kernels (K1 stiffness.cu, K2 stage.cu,
+// K4a/K4b stiffness_ab.cu, K5a/K5b stage_ab.cu).
 //
 // Fields live on the 3D GLL lattice [G0, G1, G2], Ga = na*p + 1, row-major
 // with g2 fastest. The stiffness of one field x with packed coefficient F is
@@ -123,32 +124,53 @@ __device__ __forceinline__ T axis_term(const Src& src, long long node, long long
   return acc;
 }
 
-// Stiffness sum_f K_{cf[f]}(x_f) at node (g0, g1, g2): the three axis terms.
+// The axis-A term of sum_f K_{cf[f]}(x_f) at node (g0, g1, g2).
 // ``src(i)`` returns the NF field values at node i.
+template <int A, typename T, int NF, typename Src>
+__device__ __forceinline__ T axis_at(const Src& src, const Coeff<T> (&cf)[NF],
+                                     const Lattice& L, const K1Mat<T>& K, long long node,
+                                     int g0, int g1, int g2) {
+  AxisCoeff<T> a[NF];
+  if constexpr (A == 0) {  // F0 [e0, G1, G2]
+    const long long P12 = L.G1 * L.G2;
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      a[f] = {cf[f].F[0], (long long)g1 * L.G2 + g2, cf[f].ext[0] > 1 ? P12 : 0};
+    return axis_term<T, NF>(src, node, P12, g0, L.n0, L.p, K, a);
+  } else if constexpr (A == 1) {  // F1 [G0, e1, G2]
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      a[f] = {cf[f].F[1], (long long)g0 * cf[f].ext[1] * L.G2 + g2,
+              cf[f].ext[1] > 1 ? L.G2 : 0};
+    return axis_term<T, NF>(src, node, L.G2, g1, L.n1, L.p, K, a);
+  } else {  // F2 [G0, G1, e2]
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      a[f] = {cf[f].F[2], ((long long)g0 * L.G1 + g1) * cf[f].ext[2],
+              cf[f].ext[2] > 1 ? 1LL : 0LL};
+    return axis_term<T, NF>(src, node, 1, g2, L.n2, L.p, K, a);
+  }
+}
+
+// y + the axis-1 and axis-2 terms at a node: the second kernel of the
+// two-kernel split (K4b, K5b), y being the first kernel's axis-0 term.
+template <typename T, int NF, typename Src>
+__device__ __forceinline__ T axes12_at(const Src& src, const Coeff<T> (&cf)[NF],
+                                       const Lattice& L, const K1Mat<T>& K, long long node,
+                                       int g0, int g1, int g2, T y) {
+  y += axis_at<1>(src, cf, L, K, node, g0, g1, g2);
+  y += axis_at<2>(src, cf, L, K, node, g0, g1, g2);
+  return y;
+}
+
+// Stiffness sum_f K_{cf[f]}(x_f) at a node: the three axis terms, summed in
+// axis order (K1, K2), so the split K4a -> K4b adds in the same order.
 template <typename T, int NF, typename Src>
 __device__ __forceinline__ T stiffness_at(const Src& src, const Coeff<T> (&cf)[NF],
                                           const Lattice& L, const K1Mat<T>& K,
                                           long long node, int g0, int g1, int g2) {
-  const long long P12 = L.G1 * L.G2;
-  AxisCoeff<T> a[NF];
-  // F0 [e0, G1, G2]
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-    a[f] = {cf[f].F[0], (long long)g1 * L.G2 + g2, cf[f].ext[0] > 1 ? P12 : 0};
-  T y = axis_term<T, NF>(src, node, P12, g0, L.n0, L.p, K, a);
-  // F1 [G0, e1, G2]
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-    a[f] = {cf[f].F[1], (long long)g0 * cf[f].ext[1] * L.G2 + g2,
-            cf[f].ext[1] > 1 ? L.G2 : 0};
-  y += axis_term<T, NF>(src, node, L.G2, g1, L.n1, L.p, K, a);
-  // F2 [G0, G1, e2]
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-    a[f] = {cf[f].F[2], ((long long)g0 * L.G1 + g1) * cf[f].ext[2],
-            cf[f].ext[2] > 1 ? 1LL : 0LL};
-  y += axis_term<T, NF>(src, node, 1, g2, L.n2, L.p, K, a);
-  return y;
+  return axes12_at<T, NF>(src, cf, L, K, node, g0, g1, g2,
+                          axis_at<0>(src, cf, L, K, node, g0, g1, g2));
 }
 
 // Plain read of NF fields through the read-only cache.

@@ -60,7 +60,7 @@ SOURCE_VELOCITY = {
 
 def build_model(kind: str, tx: str, medium: str, nx: int, degree: int = 4,
                 f0: float | None = None, cfl: float = 0.4, dtype=None,
-                linear: bool = False, nyz: int | None = None, device="cpu"):
+                linear: bool = False, nyz: int | None = None, device="cuda"):
     """Focused model for variant ``kind`` ("W" Westervelt, "V" lossy) on
     transducer ``tx`` in ``medium``, on an nx × nyz × nyz box (cubic cells
     unless ``nyz`` is given). ``linear=True`` zeroes β and δ (O'Neil check).
@@ -142,7 +142,7 @@ class HituRun:
 def run(kind: str, tx: str, medium: str, nx: int = 80, degree: int = 4,
         full: bool = False, f0: float | None = None, out: str | None = None,
         final_time: float | None = None, dtype=None, bowl: bool = False,
-        nyz: int | None = None, device="cpu") -> HituRun:
+        nyz: int | None = None, device="cuda") -> HituRun:
     """Run one HITU variant and read the steady axial amplitude from 161
     on-axis sensors. ``out`` writes the result as ``.npz``."""
     if bowl:
@@ -182,7 +182,7 @@ def run(kind: str, tx: str, medium: str, nx: int = 80, degree: int = 4,
 
 
 def validate_oneil(tx: str = "H101", f0: float = 0.35e6, nx: int = 64,
-                   degree: int = 4, out: str | None = None, dtype=None, device="cpu"):
+                   degree: int = 4, out: str | None = None, dtype=None, device="cuda"):
     """Linear (β = δ = 0) run of the phased-aperture bowl model against the
     O'Neil (1949) axial solution. Returns (focal-gain error, focal position
     error in m, focal-region L2 error)."""

@@ -5,9 +5,10 @@ Port of ``fenicsxfus_tpu/models/base.py`` (``source_amplitudes``,
 or cell-wise DG-0), the windowed transducer source g(t) on facet tag 1, the
 Sommerfeld ABC on facet tag 2, point sensors, and the explicit-RK driver
 with in-loop recording (``rk_record``). The step is the fused one (one K2
-launch per RK stage) when the model declares a fused kind and its boundary
-vectors live on the box faces; otherwise the reference a-vector RK step over
-``rhs_pure`` (K1 plus elementwise torch).
+launch per RK stage; K5a then K5b with ``FUS_STAGE_V3=0``) when the model
+declares a fused kind and its boundary vectors live on the box faces;
+otherwise the reference a-vector RK step over ``rhs_pure`` (K1, or K4a then
+K4b with ``FUS_V3=0``, plus elementwise torch).
 
 The port's operators take uniform lattices only (``SEMOperators`` refuses
 the rest), so the sensor code has the lattice branch alone; the hybrid
@@ -17,13 +18,15 @@ the rest), so the sensor code has the lattice branch alone; the hybrid
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 
 from ..core.gll import gll_points_weights_01, lagrange_eval_gll
 from ..ops.operators import SEMOperators
-from ..ops.stage import KIND_DENSE, KIND_FACET, FusedRKStage, pack_facet_vector, stage_apply
+from ..ops.stage import KIND_DENSE, KIND_FACET, FusedRKStage, pack_facet_vector
+from ..ops.stage_ab import FusedRKStageAB
 from .common import (
     explicit_tables,
     make_recording_scan,
@@ -187,13 +190,18 @@ class ExplicitModelBase(SpectralModelBase):
             lambda consts, t, u, v: rhs_pure(ops, consts, t, u, v), self.rk_order
         )
 
-    def fused_step(self, stage_fn=stage_apply):
+    def fused_step(self, stage_fn=None):
         """The fused step (one ``stage_fn`` call per RK stage), or None when
         the model declares no fused kind, a stiffness coefficient is not
         packed, or a boundary vector has interior support.
 
-        ``stage_fn``: ``ops.stage.stage_apply`` (K2), or ``stage_plain`` to
-        run the plain path on any device."""
+        The switch ``FUS_STAGE_V3``, read here when the step is built (as the
+        JAX package's ``_try_fused_step`` reads it), picks the kernels: one
+        K2 launch per stage (``ops.stage.FusedRKStage``, the default), or
+        with ``FUS_STAGE_V3=0`` the two-kernel stage, K5a then K5b
+        (``ops.stage_ab.FusedRKStageAB``). ``stage_fn`` replaces them with a
+        function of the same signature: ``stage_plain`` or
+        ``stage_ab_plain`` runs the plain path on any device."""
         kind = type(self).__dict__.get("FUSED_KIND")
         if not kind:
             return None
@@ -214,7 +222,9 @@ class ExplicitModelBase(SpectralModelBase):
                 self.consts[k + "__pf"] = {
                     n: self.ops.to_device(v) for n, v in packed.items()
                 }
-        stage = FusedRKStage(gdims, self.degree, kind, explicit_tables(self.rk_order))
+        two_kernel = os.environ.get("FUS_STAGE_V3", "1") == "0"
+        stage_cls = FusedRKStageAB if two_kernel else FusedRKStage
+        stage = stage_cls(gdims, self.degree, kind, explicit_tables(self.rk_order))
         return stage.make_step(
             lambda c: [c[k] for k in keys],
             lambda c: (

@@ -26,7 +26,7 @@ class LossySpectralExplicit(ExplicitModelBase):
     FUSED_KIND = "lossy"
 
     def __init__(self, mesh, meshtags, degree, c0, rho0, delta0, freq0, p0, s0,
-                 rk_order, dt, dtype=torch.float32, device="cpu"):
+                 rk_order, dt, dtype=torch.float32, device="cuda"):
         super().__init__(mesh, meshtags, degree, freq0, p0, s0, rk_order, dt,
                          dtype, device)
         nc = mesh.num_cells

@@ -25,7 +25,7 @@ class WesterveltSpectralExplicit(ExplicitModelBase):
     FUSED_KIND = "westervelt"
 
     def __init__(self, mesh, meshtags, degree, c0, rho0, delta0, beta0, freq0,
-                 p0, s0, rk_order, dt, dtype=torch.float32, device="cpu"):
+                 p0, s0, rk_order, dt, dtype=torch.float32, device="cuda"):
         super().__init__(mesh, meshtags, degree, freq0, p0, s0, rk_order, dt,
                          dtype, device)
         nc = mesh.num_cells

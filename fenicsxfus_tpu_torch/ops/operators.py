@@ -17,22 +17,9 @@ import torch
 from ..core.geometry import facet_factors, is_uniform_mesh, volume_factors
 from ..core.mesh import Mesh
 from ..core.space import build_space
+from ..utils import resolve_device
 from .lattice import LatticeStiffness, numpy_dtype
 from .stiffness import pack_const, pack_field, stiffness_apply
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device with an explicit index; raises when CUDA
-    is asked for and is not available."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device!r} requested but torch.cuda.is_available() is False"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 class SEMOperators:
@@ -43,10 +30,11 @@ class SEMOperators:
     mesh : core.mesh.Mesh from ``create_box``
     degree : polynomial degree p (GLL basis has N = p+1 nodes per axis)
     dtype : torch dtype of the device fields
-    device : torch device of the fields
+    device : torch device of the fields (default the card; the CPU only
+        when asked for)
     """
 
-    def __init__(self, mesh, degree: int, dtype=torch.float32, device="cpu"):
+    def __init__(self, mesh, degree: int, dtype=torch.float32, device="cuda"):
         if mesh.dim != 3 or mesh.grid_shape is None:
             raise NotImplementedError("only structured 3D meshes (create_box) are ported")
         self.mesh = mesh

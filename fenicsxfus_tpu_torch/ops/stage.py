@@ -40,6 +40,7 @@ from .stiffness import (
     DTYPE_CODES,
     check_coeffs,
     check_fields,
+    check_launch,
     lattice_grid,
     launch_args,
     pointer_array,
@@ -162,9 +163,18 @@ def stage_plain(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final
     named by ``KIND_FACET[kind]``. ``scal``: host floats [alpha, beta,
     source_coefs...] (+ the step-update tail when ``final``). Returns kv, or
     (u1, v1) on the final stage."""
-    nfa = len(facets)
     un, vn = stage_fields(u0, v0, kvp, kvpp, scal[0], scal[1])
     acc = stiffness_plain([un, vn][: KIND_FIELDS[kind]], Fs, p)
+    return stage_finish_plain(kind, acc, un, vn, u0, v0, kvp, kvpp, prev, dense, facets,
+                              scal, final)
+
+
+def stage_finish_plain(kind, acc, un, vn, u0, v0, kvp, kvpp, prev, dense, facets, scal,
+                       final):
+    """The rest of a stage once its assembled stiffness ``acc`` is known
+    (``csrc/stage.cuh::stage_finish``): the packed facet terms, the kind's
+    epilogue, and kv or, on the final stage, the step update (u1, v1)."""
+    nfa = len(facets)
     corr = -unpack_facet_vector(facets[-1]) * vn
     for j in range(nfa - 1):
         corr = corr + scal[2 + j] * unpack_facet_vector(facets[j])
@@ -180,7 +190,10 @@ def stage_plain(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final
     return step_update(u0, v0, kvs, scal[1 + nfa :])
 
 
-def _check_stage(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final):
+def check_stage_fields(kind, u0, tensors, Fs, p):
+    """Validate the kind, the lattice fields ``tensors`` (u0's shape, dtype
+    and device) and the stiffness coefficients of a stage; return the
+    coefficients' cell-axis extents."""
     if kind not in KIND_FIELDS:
         raise ValueError(f"unknown stage kind {kind!r}; one of {sorted(KIND_FIELDS)}")
     gdims = tuple(u0.shape)
@@ -189,29 +202,56 @@ def _check_stage(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, fina
     if u0.dim() != 3:
         raise ValueError(f"fields must be 3D lattices, got shape {gdims}")
     grid = lattice_grid(gdims, p)
+    if len(Fs) != KIND_FIELDS[kind]:
+        raise ValueError(f"kind {kind!r} takes {KIND_FIELDS[kind]} coefficients, got {len(Fs)}")
+    check_fields(tensors, gdims, u0.dtype, u0.device)
+    exts = check_coeffs(Fs, gdims, grid, u0.dtype, u0.device)
+    if u0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no stage kernel for device {u0.device}")
+    return exts
+
+
+def check_stage(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final):
+    """Validate the operands of a whole stage (K2, K5b); return the
+    coefficients' cell-axis extents."""
+    state = [t for t in (u0, v0, kvp, kvpp, prev) if t is not None]
+    exts = check_stage_fields(kind, u0, state, Fs, p)
     if kvpp is not None and kvp is None:
         raise ValueError("kvpp without kvp")
     if prev is not None and (kvpp is None or not final):
         raise ValueError("prev is only read by a final stage that also has kvpp")
-    if len(Fs) != KIND_FIELDS[kind]:
-        raise ValueError(f"kind {kind!r} takes {KIND_FIELDS[kind]} coefficients, got {len(Fs)}")
     if len(dense) != len(KIND_DENSE[kind]) or len(facets) != len(KIND_FACET[kind]):
         raise ValueError(
             f"kind {kind!r} takes dense {KIND_DENSE[kind]} and facets {KIND_FACET[kind]}"
         )
-    state = [t for t in (u0, v0, kvp, kvpp, prev) if t is not None] + list(dense)
-    check_fields(state, gdims, u0.dtype, u0.device)
-    exts = check_coeffs(Fs, gdims, grid, u0.dtype, u0.device)
+    gdims = tuple(u0.shape)
+    check_fields(dense, gdims, u0.dtype, u0.device)
     G0, G1, G2 = gdims
     want = {"xp": (2, G1, G2), "ye": (G0, 2, G2), "ze": (G0, G1, 2)}
     for pf in facets:
         for name, shape in want.items():
             check_fields([pf[name]], shape, u0.dtype, u0.device)
-    ns = 1 + sum(t is not None for t in (kvp, kvpp, prev))
+    ns = len(state) - 1
     n_scal = 1 + len(facets) + (2 * ns if final else 0)
     if len(scal) != n_scal:
         raise ValueError(f"scal has {len(scal)} entries, expected {n_scal}")
     return exts
+
+
+def stage_pointers(u0, v0, kvp, kvpp, prev, Fs, dense, facets, outs, exts):
+    """The operand slots of the stage C entries (``csrc/stage.cuh``): device
+    pointers (0 = absent) and the 6 coefficient extents. ``outs``: kv_out,
+    u_out, v_out, and for K5a/K5b yA."""
+    # fixed operand slots: 2 coefficient sets, 2 dense fields, 5 facets
+    coeffs = [F[f"F{a}"] for F in Fs for a in range(3)]
+    coeffs += [None] * (6 - len(coeffs))
+    dense_p = list(dense) + [None] * (2 - len(dense))
+    facet_p = [pf[n] for pf in facets for n in ("xp", "ye", "ze")]
+    facet_p += [None] * (15 - len(facet_p))
+    ptrs = pointer_array([u0, v0, kvp, kvpp, prev] + coeffs + dense_p + facet_p + list(outs))
+    ext = [e for ex in exts for e in ex]
+    ext += [1] * (6 - len(ext))
+    return ptrs, (ctypes.c_int * 6)(*ext)
 
 
 def stage_apply(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final):
@@ -224,11 +264,9 @@ def stage_apply(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final
     ``stage_plain``. The final stage writes u1/v1 into new buffers (never onto
     u0/v0, which other threads are still reading).
     """
-    exts = _check_stage(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final)
+    exts = check_stage(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final)
     if u0.device.type == "cpu":
         return stage_plain(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final)
-    if u0.device.type != "cuda":
-        raise ValueError(f"no K2 kernel for device {u0.device}")
     from .._build import library
 
     lib = library()
@@ -236,22 +274,13 @@ def stage_apply(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final
         outs = (None, torch.empty_like(u0), torch.empty_like(v0))
     else:
         outs = (torch.empty_like(u0), None, None)
-    # fixed operand slots: 2 coefficient sets, 2 dense fields, 5 facets
-    coeffs = [F[f"F{a}"] for F in Fs for a in range(3)]
-    coeffs += [None] * (6 - len(coeffs))
-    dense_p = list(dense) + [None] * (2 - len(dense))
-    facet_p = [pf[n] for pf in facets for n in ("xp", "ye", "ze")]
-    facet_p += [None] * (15 - len(facet_p))
-    ptrs = pointer_array([u0, v0, kvp, kvpp, prev] + coeffs + dense_p + facet_p + list(outs))
-    ext = [e for ex in exts for e in ex]
-    ext += [1] * (6 - len(ext))
+    ptrs, ext = stage_pointers(u0, v0, kvp, kvpp, prev, Fs, dense, facets, outs, exts)
     gd, K1, stream, dev = launch_args(u0, p)
     rc = lib.fus_stage(
-        KIND_CODES[kind], DTYPE_CODES[u0.dtype], ptrs, (ctypes.c_int * 6)(*ext), gd, p, K1,
+        KIND_CODES[kind], DTYPE_CODES[u0.dtype], ptrs, ext, gd, p, K1,
         (ctypes.c_double * len(scal))(*scal), len(scal), int(final), stream, dev,
     )
-    if rc != 0:
-        raise RuntimeError(f"K2 stage kernel launch failed: {lib.fus_error_string(rc).decode()}")
+    check_launch(lib, rc, "K2 stage")
     stage_apply.launches[kind] += 1
     return outs[0] if not final else (outs[1], outs[2])
 
@@ -262,6 +291,9 @@ stage_apply.launches = collections.Counter()
 
 class FusedRKStage:
     """Explicit-RK step of one model kind built from one K2 launch per stage."""
+
+    # the function of one stage that ``make_step`` calls by default
+    KERNEL = staticmethod(stage_apply)
 
     def __init__(self, gdims, p: int, kind: str, tables):
         if kind not in KIND_FIELDS:
@@ -274,18 +306,21 @@ class FusedRKStage:
         if self.nstage > 4:
             raise NotImplementedError("the fused stage takes at most 4 RK stages")
 
-    def make_step(self, consts_to_Fs, consts_to_extras, stage_fn=stage_apply):
+    def make_step(self, consts_to_Fs, consts_to_extras, stage_fn=None):
         """Step function (consts, (u, v, t), dt) -> (u, v, t + dt) on lattice
         tensors [G0, G1, G2]; ``t`` and ``dt`` are host floats.
 
         ``consts_to_Fs(consts)``: the packed stiffness coefficients, one per
         field; ``consts_to_extras(consts)``: (dense, packed facets) in
-        ``KIND_DENSE``/``KIND_FACET`` order. ``stage_fn`` is ``stage_apply``,
-        or ``stage_plain`` to run the plain path on any device. Scalars (α, β,
-        source coefficients, step weights) are formed on the host in float64
-        and passed to each launch as arguments."""
+        ``KIND_DENSE``/``KIND_FACET`` order. ``stage_fn``: the function of
+        one stage, with ``stage_apply``'s signature; by default the class's
+        kernels (``KERNEL``), or a plain version (``stage_plain``) to run the
+        plain path on any device. Scalars (α, β, source coefficients, step
+        weights) are formed on the host in float64 and passed to each launch
+        as arguments."""
         a_t, b_t, c_t = self.a_tab, self.b_tab, self.c_tab
         n, p, kind = self.nstage, self.p, self.kind
+        stage_fn = stage_fn or self.KERNEL
 
         def step(consts, carry, dtn):
             u0, v0, t = carry

@@ -15,17 +15,24 @@ or 1 (constant coefficient). The JAX package stores F2 transposed,
 ``stiffness_apply`` is the wrapper: a CUDA tensor launches the hand-written
 kernel in ``csrc/stiffness.cu``; a CPU tensor runs ``stiffness_plain``, the
 same function in ordinary torch ops.
+
+K4a/K4b: the same operator split at the axis-0 / axes-1,2 boundary into two
+kernels (``csrc/stiffness_ab.cu``), the port of the JAX package's two-kernel
+``LatticePallasStiffness.apply`` (``_kernel_axis0``, ``_kernel_axes12``).
+``stiffness_apply`` takes that path when ``FUS_V3=0``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import numpy as np
 import torch
 
 from ..core.gll import diff_matrix, gll_points_weights_01
+from ..utils import resolve_device
 from .lattice import LatticeStiffness
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -48,7 +55,7 @@ def _k1_tensor(p: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor
 # ------------------------------------------------------------------ packing
 
 
-def pack_const(lat: LatticeStiffness, coeff: float, device="cpu"):
+def pack_const(lat: LatticeStiffness, coeff: float, device="cuda"):
     """Packed F tensors for a spatially constant coefficient (3D)."""
     c = float(coeff)
     wg = [np.asarray(lat._wg[a]) for a in range(3)]
@@ -59,7 +66,7 @@ def pack_const(lat: LatticeStiffness, coeff: float, device="cpu"):
     return _as_coeff((F0, F1, F2), lat.dtype, device)
 
 
-def pack_field(lat: LatticeStiffness, coeff_cells: np.ndarray, device="cpu"):
+def pack_field(lat: LatticeStiffness, coeff_cells: np.ndarray, device="cuda"):
     """Packed F tensors for a DG-0 coefficient field (3D): the coefficient
     folded (weighted) over the perpendicular axes, cell-resolved along the
     contraction axis."""
@@ -75,6 +82,7 @@ def pack_field(lat: LatticeStiffness, coeff_cells: np.ndarray, device="cpu"):
 
 
 def _as_coeff(Fs, dtype, device):
+    device = resolve_device(device)
     return {
         f"F{a}": torch.as_tensor(np.ascontiguousarray(F), dtype=dtype, device=device)
         for a, F in enumerate(Fs)
@@ -126,19 +134,36 @@ def _fold(z, a: int, G: int, p: int):
     return y.movedim(-1, a)
 
 
-def stiffness_plain(xs, Fs, p: int) -> torch.Tensor:
-    """Plain torch version of the K1 kernel: the same function, ordinary ops
-    (elementwise products and sums only, so no TF32 path exists)."""
-    x0 = xs[0]
-    K1 = _k1_tensor(p, x0.dtype, x0.device)
-    y = torch.zeros_like(x0)
-    for a in range(3):
+def _add_axes_plain(y, xs, Fs, p: int, axes):
+    """y += the terms of ``axes`` of Σ_f K_{F_f}(x_f), axis by axis, in place."""
+    K1 = _k1_tensor(p, y.dtype, y.device)
+    for a in axes:
         z = None
         for x, F in zip(xs, Fs):
             t = _axis_apply_plain(x, F[f"F{a}"], a, p, K1)
             z = t if z is None else z + t
-        y += _fold(z, a, x0.shape[a], p)
+        y += _fold(z, a, y.shape[a], p)
     return y
+
+
+def stiffness_plain(xs, Fs, p: int) -> torch.Tensor:
+    """Plain torch version of the K1 kernel: the same function, ordinary ops
+    (elementwise products and sums only, so no TF32 path exists)."""
+    return _add_axes_plain(torch.zeros_like(xs[0]), xs, Fs, p, (0, 1, 2))
+
+
+def stiffness_axis0_plain(xs, Fs, p: int) -> torch.Tensor:
+    """Plain torch version of the K4a kernel: the axis-0 term of
+    Σ_f K_{F_f}(x_f)."""
+    return _add_axes_plain(torch.zeros_like(xs[0]), xs, Fs, p, (0,))
+
+
+def stiffness_axes12_plain(xs, Fs, yA, p: int) -> torch.Tensor:
+    """Plain torch version of the K4b kernel: yA + the axis-1 and axis-2
+    terms of Σ_f K_{F_f}(x_f), accumulated into ``yA`` in place (as the
+    kernel writes its aliased yA) and returned. After ``stiffness_axis0_plain``
+    it adds the axes in ``stiffness_plain``'s order."""
+    return _add_axes_plain(yA, xs, Fs, p, (1, 2))
 
 
 # ------------------------------------------------------------------ wrapper
@@ -191,14 +216,11 @@ def launch_args(x: torch.Tensor, p: int):
     return gd, K1, ctypes.c_void_p(stream), x.device.index
 
 
-def stiffness_apply(xs, Fs, p: int) -> torch.Tensor:
-    """y = Σ_f K_{F_f}(x_f) for 1 or 2 lattice fields [G0, G1, G2].
-
-    CUDA tensors launch the K1 kernel (``csrc/stiffness.cu``) on the current
-    stream; CPU tensors run ``stiffness_plain``. Anything else raises.
-    """
+def _check_stiffness(xs, Fs, p: int, name: str):
+    """Validate the fields and coefficients of a stiffness kernel; return
+    the cell-axis extents of the coefficients."""
     if not 1 <= len(xs) <= 2 or len(xs) != len(Fs):
-        raise ValueError("stiffness_apply takes 1 or 2 fields with one coefficient each")
+        raise ValueError(f"{name} takes 1 or 2 fields with one coefficient each")
     x0 = xs[0]
     gdims = tuple(x0.shape)
     if x0.dtype not in DTYPE_CODES:
@@ -208,26 +230,85 @@ def stiffness_apply(xs, Fs, p: int) -> torch.Tensor:
     grid = lattice_grid(gdims, p)
     check_fields(xs, gdims, x0.dtype, x0.device)
     exts = check_coeffs(Fs, gdims, grid, x0.dtype, x0.device)
-    if x0.device.type == "cpu":
-        return stiffness_plain(xs, Fs, p)
-    if x0.device.type != "cuda":
-        raise ValueError(f"no K1 kernel for device {x0.device}")
+    if x0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} kernel for device {x0.device}")
+    return exts
+
+
+def _launch(entry, name, xs, Fs, exts, p, outs):
+    """Launch the C entry ``entry`` of a stiffness kernel on the current
+    stream: fields, coefficients and extents, then the device pointers
+    ``outs``; raise if the launch failed."""
     from .._build import library
 
     lib = library()
-    y = torch.empty_like(x0)
     xp = pointer_array(xs)
     Fp = pointer_array([F[f"F{a}"] for F in Fs for a in range(3)])
     ext = (ctypes.c_int * (3 * len(Fs)))(*[e for ex in exts for e in ex])
-    gd, K1, stream, dev = launch_args(x0, p)
-    rc = lib.fus_stiffness_apply(
-        DTYPE_CODES[x0.dtype], len(xs), xp, Fp, ext, ctypes.c_void_p(y.data_ptr()),
-        gd, p, K1, stream, dev,
+    gd, K1, stream, dev = launch_args(xs[0], p)
+    rc = getattr(lib, entry)(
+        DTYPE_CODES[xs[0].dtype], len(xs), xp, Fp, ext,
+        *[ctypes.c_void_p(t.data_ptr()) for t in outs], gd, p, K1, stream, dev,
     )
+    check_launch(lib, rc, name)
+
+
+def check_launch(lib, rc: int, name: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"K1 stiffness kernel launch failed: {lib.fus_error_string(rc).decode()}")
+        raise RuntimeError(f"{name} kernel launch failed: {lib.fus_error_string(rc).decode()}")
+
+
+def stiffness_apply(xs, Fs, p: int) -> torch.Tensor:
+    """y = Σ_f K_{F_f}(x_f) for 1 or 2 lattice fields [G0, G1, G2].
+
+    CUDA tensors launch the K1 kernel (``csrc/stiffness.cu``) on the current
+    stream; CPU tensors run ``stiffness_plain``. Anything else raises. With
+    ``FUS_V3=0`` in the environment (read at every call, as the JAX package's
+    ``LatticePallasStiffness.apply`` reads it) the two-kernel path runs
+    instead: ``stiffness_axis0_apply`` (K4a), then ``stiffness_axes12_apply``
+    (K4b).
+    """
+    if os.environ.get("FUS_V3", "1") == "0":
+        return stiffness_axes12_apply(xs, Fs, stiffness_axis0_apply(xs, Fs, p), p)
+    exts = _check_stiffness(xs, Fs, p, "K1 stiffness")
+    if xs[0].device.type == "cpu":
+        return stiffness_plain(xs, Fs, p)
+    y = torch.empty_like(xs[0])
+    _launch("fus_stiffness_apply", "K1 stiffness", xs, Fs, exts, p, [y])
     stiffness_apply.launches += 1
     return y
 
 
+def stiffness_axis0_apply(xs, Fs, p: int) -> torch.Tensor:
+    """yA = the axis-0 term of Σ_f K_{F_f}(x_f), the first kernel of the
+    two-kernel stiffness. CUDA tensors launch K4a (``csrc/stiffness_ab.cu``)
+    on the current stream; CPU tensors run ``stiffness_axis0_plain``."""
+    exts = _check_stiffness(xs, Fs, p, "K4a stiffness")
+    if xs[0].device.type == "cpu":
+        return stiffness_axis0_plain(xs, Fs, p)
+    yA = torch.empty_like(xs[0])  # every node is written
+    _launch("fus_stiffness_axis0", "K4a stiffness", xs, Fs, exts, p, [yA])
+    stiffness_axis0_apply.launches += 1
+    return yA
+
+
+def stiffness_axes12_apply(xs, Fs, yA, p: int) -> torch.Tensor:
+    """yA + the axis-1 and axis-2 terms of Σ_f K_{F_f}(x_f), written in place
+    into ``yA`` (the TPU kernel's aliased output) and returned: the second
+    kernel of the two-kernel stiffness. CUDA tensors launch K4b
+    (``csrc/stiffness_ab.cu``) on the current stream; CPU tensors run
+    ``stiffness_axes12_plain``."""
+    exts = _check_stiffness(xs, Fs, p, "K4b stiffness")
+    check_fields([yA], tuple(xs[0].shape), xs[0].dtype, xs[0].device)
+    if xs[0].device.type == "cpu":
+        return stiffness_axes12_plain(xs, Fs, yA, p)
+    _launch("fus_stiffness_axes12", "K4b stiffness", xs, Fs, exts, p, [yA, yA])
+    stiffness_axes12_apply.launches += 1
+    return yA
+
+
+# kernel launches of each wrapper (CUDA tensors only)
 stiffness_apply.launches = 0
+stiffness_axis0_apply.launches = 0
+stiffness_axes12_apply.launches = 0

@@ -1,13 +1,16 @@
 """Where the time of the HITU W-H101-WATER focused path goes, on one CUDA
-device: per-stage K2 ``focused`` times by CUDA events, the sensor gather,
-the host-clock step time of ``rk_record``, and a ``torch.profiler`` window
-of 10 ``rk_record`` steps (device busy share).
+device: per-stage times of its stage kernels by CUDA events (K2 ``focused``,
+or with ``FUS_STAGE_V3=0`` K5a and K5b), the sensor gather, the host-clock
+step time of ``rk_record``, and a ``torch.profiler`` window of 10
+``rk_record`` steps (device busy share).
 
     python3 fenicsxfus_tpu_torch/tools/profile_hitu.py
+    FUS_STAGE_V3=0 FUS_V3=0 python3 fenicsxfus_tpu_torch/tools/profile_hitu.py
 
 Runs from any directory; it imports the package of the checkout it lies in.
 """
 
+import os
 import sys
 import time
 from pathlib import Path
@@ -19,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from fenicsxfus_tpu_torch.drivers import hitu  # noqa: E402
 from fenicsxfus_tpu_torch.ops.stage import stage_apply  # noqa: E402
+from fenicsxfus_tpu_torch.ops.stage_ab import stage_a_apply, stage_b_apply  # noqa: E402
 
 
 def main() -> None:
@@ -32,28 +36,46 @@ def main() -> None:
     model.rk_record(0.0, 400 * dt, pts)
     torch.cuda.synchronize()
 
-    # per-stage K2 times over 5 steps
-    events = {i: [] for i in range(4)}
+    # per-stage kernel times over 5 steps
+    two_kernel = os.environ.get("FUS_STAGE_V3", "1") == "0"
+    names = ("K5a", "K5b") if two_kernel else ("K2",)
+    events = {(n, i): [] for n in names for i in range(4)}
     count = [0]
 
-    def timed(*args):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = stage_apply(*args)
-        b.record()
-        events[count[0] % 4].append((a, b))
-        count[0] += 1
-        return out
+    def timer(fn, name):
+        def timed(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            events[(name, count[0] % 4)].append((a, b))
+            if name != "K5a":
+                count[0] += 1
+            return out
+        return timed
 
-    step = model.fused_step(stage_fn=timed)
+    if two_kernel:
+        time_a, time_b = timer(stage_a_apply, "K5a"), timer(stage_b_apply, "K5b")
+
+        def stage_fn(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final):
+            yA = time_a(kind, u0, v0, kvp, kvpp, Fs, scal, p)
+            return time_b(kind, u0, v0, kvp, kvpp, prev, yA, Fs, dense, facets, scal, p, final)
+    else:
+        stage_fn = timer(stage_apply, "K2")
+
+    step = model.fused_step(stage_fn=stage_fn)
     gd = model.ops.gdims
     u, v, t = model.u_n.view(gd), model.v_n.view(gd), model.t
     for _ in range(5):
         u, v, t = step(model.consts, (u, v, t), dt)
     torch.cuda.synchronize()
-    per = [float(np.median([a.elapsed_time(b) for a, b in events[i]])) for i in range(4)]
-    print("K2 focused per stage (median of 5 steps, CUDA events): "
-          + " / ".join(f"{x:.3f}" for x in per) + f" ms; sum {sum(per):.3f} ms", flush=True)
+    total = 0.0
+    for n in names:
+        per = [float(np.median([a.elapsed_time(b) for a, b in events[(n, i)]])) for i in range(4)]
+        total += sum(per)
+        print(f"{n} focused per stage (median of 5 steps, CUDA events): "
+              + " / ".join(f"{x:.3f}" for x in per) + f" ms; sum {sum(per):.3f} ms", flush=True)
+    print(f"stage kernels per step: {total:.3f} ms", flush=True)
 
     # sensor gather
     extract = model._record_plan(pts)

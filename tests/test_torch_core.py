@@ -21,7 +21,12 @@ from fenicsxfus_tpu_torch.core import geometry as tgeom
 from fenicsxfus_tpu_torch.core import gll as tgll
 from fenicsxfus_tpu_torch.core import mesh as tmesh
 from fenicsxfus_tpu_torch.core import space as tspace
+import fenicsxfus_tpu_torch as ft
+from fenicsxfus_tpu_torch.convert import state_from_numpy
+from fenicsxfus_tpu_torch.drivers import hitu
+from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
 from fenicsxfus_tpu_torch.ops.operators import SEMOperators
+from fenicsxfus_tpu_torch.ops.stiffness import pack_const
 
 torch.set_num_threads(1)
 
@@ -82,7 +87,7 @@ def test_mass_and_facet_vectors_match_jax(grid, hi, degree, hetero):
     rng = np.random.default_rng(4)
     coeff = rng.uniform(0.5, 2.0, jm.num_cells) if hetero else 1.7
     jops = JaxOps(jm, degree, dtype=jnp.float64)
-    tops = SEMOperators(tm, degree, dtype=torch.float64)
+    tops = SEMOperators(tm, degree, dtype=torch.float64, device="cpu")
     assert tops.gdims == jops.lattice.gdims
     assert np.array_equal(np.asarray(jops.assemble_diag(coeff)), tops.assemble_diag(coeff))
     for tag in (1, 2, 3):
@@ -93,13 +98,13 @@ def test_mass_and_facet_vectors_match_jax(grid, hi, degree, hetero):
 
 def test_unsupported_meshes_raise():
     with pytest.raises(NotImplementedError):
-        SEMOperators(tmesh.create_rectangle((4, 3)), 2)
+        SEMOperators(tmesh.create_rectangle((4, 3)), 2, device="cpu")
     bent = tmesh.create_box((3, 3, 3))
     bent.vertices = bent.vertices.copy()
     bent.vertices[:, 0] += 0.05 * bent.vertices[:, 1] ** 2
     bent.uniform_hint = False
     with pytest.raises(NotImplementedError):
-        SEMOperators(bent, 2)
+        SEMOperators(bent, 2, device="cpu")
 
 
 def test_port_imports_no_jax():
@@ -108,9 +113,45 @@ def test_port_imports_no_jax():
         "fenicsxfus_tpu_torch._build, fenicsxfus_tpu_torch.analysis.error, "
         "fenicsxfus_tpu_torch.analysis.analytical, fenicsxfus_tpu_torch.utils, "
         "fenicsxfus_tpu_torch.models.lossy, fenicsxfus_tpu_torch.models.westervelt, "
-        "fenicsxfus_tpu_torch.models.focused, fenicsxfus_tpu_torch.drivers.hitu, chip_smoke; "
+        "fenicsxfus_tpu_torch.models.focused, fenicsxfus_tpu_torch.drivers.hitu, "
+        "fenicsxfus_tpu_torch.ops.stage_ab, chip_smoke; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def _box():
+    return tmesh.create_box((2, 2, 2))
+
+
+_MODEL_ARGS = dict(meshtags=None, degree=2, c0=1500.0, rho0=1000.0, freq0=0.5e6, p0=6e4,
+                   s0=1500.0, rk_order=4, dt=1e-8)
+# every entry point of the port that takes a device, called without one
+ENTRY_POINTS = {
+    "SEMOperators": lambda: SEMOperators(_box(), 2),
+    "LinearSpectralExplicit": lambda: ft.LinearSpectralExplicit(_box(), **_MODEL_ARGS),
+    "LossySpectralExplicit": lambda: ft.LossySpectralExplicit(_box(), delta0=0.0,
+                                                              **_MODEL_ARGS),
+    "WesterveltSpectralExplicit": lambda: ft.WesterveltSpectralExplicit(
+        _box(), delta0=0.0, beta0=3.5, **_MODEL_ARGS),
+    "WesterveltSpectralFocused": lambda: ft.WesterveltSpectralFocused(
+        _box(), delta0=0.0, beta0=3.5, aperture_radius=0.2, focal_distance=0.6,
+        **_MODEL_ARGS),
+    "hitu.build_model": lambda: hitu.build_model("W", "H101", "WATER", nx=4, degree=2),
+    "pack_const": lambda: pack_const(LatticeStiffness((2, 2, 2), 2, (0.5,) * 3,
+                                                      torch.float64), 1.0),
+    "state_from_numpy": lambda: state_from_numpy(np.zeros(3), np.zeros(3)),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(entry):
+    """The port's entry points run on the card unless asked for the CPU:
+    without CUDA, a call that names no device raises instead of falling
+    back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        ENTRY_POINTS[entry]()

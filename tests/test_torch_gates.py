@@ -44,7 +44,7 @@ def test_lossy_damped_planewave():
     mesh, h = _channel(epw)
     dt = 0.5 * h / (C0 * degree**2)
     eqn = LossySpectralExplicit(mesh, None, degree, C0, rho0, delta0, F0, p0, C0, 4, dt,
-                                dtype=torch.float64)
+                                dtype=torch.float64, device="cpu")
     assert eqn.step_kind == "fused"
     u, _, tf = eqn.rk(0.0, L / C0 + 16.0 / F0)
     err = relative_l2_error(eqn.ops, u, lambda x: damped_planewave(x[0], tf, C0, F0, p0, alphaNp))
@@ -58,7 +58,7 @@ def test_westervelt_fubini():
     mesh, h = _channel(epw)
     dt = 0.9 * h / (C0 * degree**2)
     eqn = WesterveltSpectralExplicit(mesh, None, degree, C0, rho0, 0.0, beta0, F0, p0, C0, 4, dt,
-                                     dtype=torch.float64)
+                                     dtype=torch.float64, device="cpu")
     assert eqn.step_kind == "fused"
     u, _, tf = eqn.rk(0.0, L / C0 + 8.0 / F0)
     err = relative_l2_error(eqn.ops, u, lambda x: fubini(x[0], tf, C0, F0, p0, rho0, beta0))

@@ -20,6 +20,7 @@ from fenicsxfus_tpu_torch import (
     tag_boundaries,
 )
 from fenicsxfus_tpu_torch.convert import state_from_numpy
+from fenicsxfus_tpu_torch.models.common import make_scan_from_step
 from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
 from fenicsxfus_tpu_torch.ops.stage import (
     KIND_DENSE,
@@ -29,10 +30,20 @@ from fenicsxfus_tpu_torch.ops.stage import (
     stage_apply,
     stage_plain,
 )
+from fenicsxfus_tpu_torch.ops.stage_ab import (
+    stage_a_apply,
+    stage_a_plain,
+    stage_b_apply,
+    stage_b_plain,
+)
 from fenicsxfus_tpu_torch.ops.stiffness import (
     pack_const,
     pack_field,
     stiffness_apply,
+    stiffness_axes12_apply,
+    stiffness_axes12_plain,
+    stiffness_axis0_apply,
+    stiffness_axis0_plain,
     stiffness_plain,
 )
 
@@ -123,6 +134,61 @@ def test_k2_matches_plain(grid, kind, present, final, dtype, cuda):
             assert _rel(a, b) < TOLS[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("degree", [2, 3, 4])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_k4_matches_plain(grid, degree, dtype, cuda, monkeypatch):
+    """K4a, K4b and their composition against the plain versions, and the
+    ``FUS_V3=0`` dispatch of ``stiffness_apply`` through K4a and K4b."""
+    lat = LatticeStiffness(grid, degree, (0.1, 0.14, 0.07), dtype)
+    rng = np.random.default_rng(degree)
+    Fs = [pack_const(lat, 1.7, cuda),
+          pack_field(lat, rng.uniform(0.5, 2.0, int(np.prod(grid))), cuda)]
+    xs = [torch.as_tensor(rng.standard_normal(lat.gdims), dtype=dtype, device=cuda)
+          for _ in range(2)]
+    for x_in, F_in in (([xs[0]], Fs[:1]), ([xs[1]], Fs[1:]), (xs, Fs)):
+        before = stiffness_axis0_apply.launches, stiffness_axes12_apply.launches
+        yA = stiffness_axis0_apply(x_in, F_in, degree)
+        assert _rel(yA, stiffness_axis0_plain(x_in, F_in, degree)) < TOLS[dtype]
+        y = stiffness_axes12_apply(x_in, F_in, yA.clone(), degree)
+        assert _rel(y, stiffness_axes12_plain(x_in, F_in, yA.clone(), degree)) < TOLS[dtype]
+        assert _rel(y, stiffness_plain(x_in, F_in, degree)) < TOLS[dtype]
+        assert (stiffness_axis0_apply.launches, stiffness_axes12_apply.launches) == (
+            before[0] + 1, before[1] + 1)
+    monkeypatch.setenv("FUS_V3", "0")
+    k1, k4a, k4b = (stiffness_apply.launches, stiffness_axis0_apply.launches,
+                    stiffness_axes12_apply.launches)
+    y = stiffness_apply(xs, Fs, degree)
+    assert (stiffness_apply.launches, stiffness_axis0_apply.launches,
+            stiffness_axes12_apply.launches) == (k1, k4a + 1, k4b + 1)
+    assert _rel(y, stiffness_plain(xs, Fs, degree)) < TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("present,final", STAGES)
+@pytest.mark.parametrize("kind", sorted(KIND_FIELDS))
+@pytest.mark.parametrize("grid", GRIDS)
+def test_k5_matches_plain(grid, kind, present, final, dtype, cuda):
+    """K5a and K5b against their plain versions (K5b on K5a's output), and
+    the pair against the one-kernel stage's plain version."""
+    lat = LatticeStiffness(grid, 4, (0.1, 0.14, 0.07), dtype)
+    rng = np.random.default_rng(sum(present) + 4 * final)
+    for dg0 in (False, True):
+        args = _stage_args(kind, lat, rng, cuda, present, final, dg0)
+        _, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, _ = args
+        before = stage_a_apply.launches[kind], stage_b_apply.launches[kind]
+        yA = stage_a_apply(kind, u0, v0, kvp, kvpp, Fs, scal, p)
+        assert _rel(yA, stage_a_plain(kind, u0, v0, kvp, kvpp, Fs, scal, p)) < TOLS[dtype]
+        got = stage_b_apply(kind, u0, v0, kvp, kvpp, prev, yA, Fs, dense, facets, scal, p, final)
+        assert (stage_a_apply.launches[kind], stage_b_apply.launches[kind]) == (
+            before[0] + 1, before[1] + 1)
+        ref = stage_b_plain(kind, u0, v0, kvp, kvpp, prev, yA, Fs, dense, facets, scal, p, final)
+        whole = stage_plain(*args)
+        for a, b, c in (zip(got, ref, whole) if final else [(got, ref, whole)]):
+            assert _rel(a, b) < TOLS[dtype]
+            assert _rel(a, c) < TOLS[dtype]
+
+
 def test_wrappers_refuse_bad_cuda_input(cuda):
     lat = LatticeStiffness(GRID, 2, (0.1, 0.1, 0.1), torch.float32)
     F = pack_const(lat, 1.0, cuda)
@@ -131,7 +197,12 @@ def test_wrappers_refuse_bad_cuda_input(cuda):
         with pytest.raises(ValueError):
             stiffness_apply([bad], [F], 2)
     with pytest.raises(ValueError):
-        stiffness_apply([x], [pack_const(lat, 1.0)], 2)  # coefficient on the CPU
+        stiffness_apply([x], [pack_const(lat, 1.0, "cpu")], 2)  # coefficient on the CPU
+    for bad in (x.cpu(), x.double()):
+        with pytest.raises(ValueError):
+            stiffness_axis0_apply([bad], [F], 2)
+        with pytest.raises(ValueError):
+            stiffness_axes12_apply([x], [F], bad, 2)
 
 
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
@@ -184,3 +255,42 @@ def test_focused_model_on_gpu_matches_cpu(cuda):
     assert outs[0][2] == 0 and outs[1][2] == 20
     assert _rel(outs[1][0], outs[0][0]) < 1e-12
     assert _rel(outs[1][1], outs[0][1]) < 1e-12
+
+
+def test_two_kernel_focused_model_on_gpu_matches_cpu(cuda, monkeypatch):
+    """``FUS_STAGE_V3=0``: the fp64 focused model through K5a and K5b on the
+    card (20 launches of each for 5 RK4 steps, none of K2) equals the CPU
+    run; ``FUS_V3=0``: its unfused step through K4a and K4b too."""
+    monkeypatch.setenv("FUS_STAGE_V3", "0")
+    monkeypatch.setenv("FUS_V3", "0")
+    rng = np.random.default_rng(9)
+    c0, rho0 = rng.uniform(1400, 1600, 96), rng.uniform(900, 1100, 96)
+    models = []
+    for dev in ("cpu", cuda):
+        mesh = create_box((6, 4, 4), (0, 0, 0), (1.0, 0.5, 0.5))
+        tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12}, default=2)
+        models.append(WesterveltSpectralFocused(
+            mesh, None, 3, c0, rho0, 4e-3, 3.5, 0.5e6, 6e4, 1500.0, 4, 1e-8,
+            aperture_radius=0.2, focal_distance=0.6, center=np.array([0.0, 0.25, 0.25]),
+            dtype=torch.float64, device=dev))
+    u0, v0 = (rng.standard_normal(models[0].number_of_dofs()) for _ in range(2))
+    outs = []
+    for m in models:
+        assert m.step_kind == "fused"
+        m.u_n, m.v_n = state_from_numpy(u0, v0, m.device)
+        before = (stage_a_apply.launches["focused"], stage_b_apply.launches["focused"],
+                  stage_apply.launches["focused"])
+        u, v, _ = m.rk(0.0, 5e-8)
+        after = (stage_a_apply.launches["focused"], stage_b_apply.launches["focused"],
+                 stage_apply.launches["focused"])
+        x, y = state_from_numpy(u0, v0, m.device)
+        k4 = stiffness_axis0_apply.launches
+        uu, _, _ = make_scan_from_step(m.unfused_step())(m.consts, x, y, 0.0, 5e-8, 1e-8)
+        outs.append((u.cpu(), v.cpu(), [b - a for a, b in zip(before, after)], uu.cpu(),
+                     stiffness_axis0_apply.launches - k4))
+    assert outs[0][2] == [0, 0, 0] and outs[1][2] == [20, 20, 0]
+    assert outs[0][4] == 0 and outs[1][4] == 20
+    assert _rel(outs[1][0], outs[0][0]) < 1e-12
+    assert _rel(outs[1][1], outs[0][1]) < 1e-12
+    assert _rel(outs[1][3], outs[0][3]) < 1e-12
+    assert _rel(outs[1][3], outs[1][0]) < 1e-12

@@ -51,7 +51,7 @@ def test_small_run_matches_jax():
     driver (its default path on the CPU, the unfused scan)."""
     kw = dict(nx=10, degree=2, f0=1e5, final_time=8e-6)
     x_ref, amp_ref = jax_hitu.run("W", "H101", "WATER", dtype=jnp.float64, **kw)
-    res = hitu.run("W", "H101", "WATER", dtype=torch.float64, **kw)
+    res = hitu.run("W", "H101", "WATER", dtype=torch.float64, device="cpu", **kw)
     assert res.model.step_kind == "fused" and res.nsteps == 11
     np.testing.assert_array_equal(res.x, x_ref)
     assert np.max(np.abs(res.amplitude - amp_ref)) < 1e-10 * np.max(np.abs(amp_ref))
@@ -59,4 +59,5 @@ def test_small_run_matches_jax():
 
 def test_bowl_mesh_is_not_ported():
     with pytest.raises(NotImplementedError):
-        hitu.run("W", "H101", "WATER", nx=6, degree=2, f0=1e5, final_time=1e-6, bowl=True)
+        hitu.run("W", "H101", "WATER", nx=6, degree=2, f0=1e5, final_time=1e-6, bowl=True,
+                 device="cpu")

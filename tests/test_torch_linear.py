@@ -72,11 +72,11 @@ def test_slice_matches_jax(hetero, monkeypatch):
     jm = JaxLinear(jmesh, dtype=jnp.float64, **_args(c0, rho0))
     assert jm._try_build_fused() is not None, "JAX fused path not taken"
     tm = LinearSpectralExplicit(_tag(tag_boundaries, create_box(grid, (0, 0, 0), hi)),
-                                dtype=torch.float64, **_args(c0, rho0))
+                                dtype=torch.float64, device="cpu", **_args(c0, rho0))
     assert tm.step_kind == "fused"
 
     # the port's own host setup == the JAX consts carried across
-    converted = consts_from_numpy(_as_numpy(jm.consts))
+    converted = consts_from_numpy(_as_numpy(jm.consts), device="cpu")
     assert set(converted) == set(tm.consts)
     for k, v in converted.items():
         if isinstance(v, dict):
@@ -94,7 +94,7 @@ def test_slice_matches_jax(hetero, monkeypatch):
     jm.u_n, jm.v_n = jnp.asarray(u0), jnp.asarray(v0)
     ju, jv, jt = jm.rk(0.0, 5 * DT)
     tm.consts = converted
-    tm.u_n, tm.v_n = state_from_numpy(u0, v0)
+    tm.u_n, tm.v_n = state_from_numpy(u0, v0, device="cpu")
     tu, tv, tt = tm.rk(0.0, 5 * DT)
     assert tt == pytest.approx(float(jt), rel=1e-15)
     _assert_close(tu, ju, 1e-12)
@@ -109,7 +109,7 @@ def test_planewave_gate():
     mesh = _tag(tag_boundaries, create_box((41, 1, 1), (0, 0, 0), (1.0, 0.1, 0.1)))
     dt = 0.9 * (1.0 / 41) / (c0 * degree**2)
     model = LinearSpectralExplicit(mesh, None, degree, c0, rho0, f0, p0, c0, 4, dt,
-                                   dtype=torch.float64)
+                                   dtype=torch.float64, device="cpu")
     assert model.step_kind == "fused" and model.number_of_dofs() == 4125
     model.init()
     u, _, tf = model.rk(0.0, 1.0 / c0 + 16.0 / f0)
@@ -121,7 +121,7 @@ def test_planewave_gate():
 def test_fused_step_matches_unfused(order):
     mesh = _tag(tag_boundaries, create_box((5, 3, 4), (0, 0, 0), (L, 0.5, 0.5)))
     c0, rho0 = _media(True, mesh.num_cells)
-    model = LinearSpectralExplicit(mesh, dtype=torch.float64, **_args(c0, rho0, order))
+    model = LinearSpectralExplicit(mesh, dtype=torch.float64, device="cpu", **_args(c0, rho0, order))
     assert model.step_kind == "fused"
     rng = np.random.default_rng(order)
     u0, v0 = (torch.from_numpy(rng.standard_normal(model.ops.ndofs)) for _ in range(2))
@@ -140,7 +140,7 @@ def test_closed_box_energy_does_not_grow():
     c0, degree = 1.0, 3
     dt = 0.5 * 0.25 / (c0 * degree**2)
     model = LinearSpectralExplicit(mesh, None, degree, c0, 1.0, 1.0, 1.0, c0, 4, dt,
-                                   dtype=torch.float64)
+                                   dtype=torch.float64, device="cpu")
     model.u_n = model.ops.interpolate(
         lambda x: np.sin(np.pi * x[0]) * np.cos(np.pi * x[1] / 0.75) * np.cos(np.pi * x[2] / 0.75)
     )

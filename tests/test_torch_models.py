@@ -76,7 +76,8 @@ def _jax_model(name, hetero):
 
 def _port_model(name, hetero):
     mesh = _mesh(create_box, tag_boundaries, MODELS[name][3])
-    return MODELS[name][1](mesh, dtype=torch.float64, **_args(name, hetero, mesh.num_cells))
+    return MODELS[name][1](mesh, dtype=torch.float64, device="cpu",
+                           **_args(name, hetero, mesh.num_cells))
 
 
 def _as_numpy(consts):
@@ -111,7 +112,7 @@ def test_model_matches_jax(name, hetero, monkeypatch):
     monkeypatch.setenv("FUS_PALLAS", "1")
     jm_packed = _jax_model(name, hetero)
     assert jm_packed._try_build_fused() is not None, "JAX fused path not taken"
-    converted = consts_from_numpy(_as_numpy(jm_packed.consts))
+    converted = consts_from_numpy(_as_numpy(jm_packed.consts), device="cpu")
     assert set(converted) == set(tm.consts)
     for k, v in converted.items():
         if isinstance(v, dict):
@@ -129,7 +130,7 @@ def test_model_matches_jax(name, hetero, monkeypatch):
     u0, v0 = _state(jm.ops.ndofs)
     jm.u_n, jm.v_n = jnp.asarray(u0), jnp.asarray(v0)
     ju, jv, jt = jm.rk(0.0, 5 * DT)
-    tm.u_n, tm.v_n = state_from_numpy(u0, v0)
+    tm.u_n, tm.v_n = state_from_numpy(u0, v0, device="cpu")
     tu, tv, tt = tm.rk(0.0, 5 * DT)
     assert tt == pytest.approx(float(jt), rel=1e-15)
     _assert_close(tu, ju, 1e-12)
@@ -170,7 +171,7 @@ def test_rk_record_matches_jax(on_node, monkeypatch):
     u0, v0 = _state(jm.ops.ndofs)
     jm.u_n, jm.v_n = jnp.asarray(u0), jnp.asarray(v0)
     _, _, jt, jtimes, jys = jm.rk_record(0.0, 5 * DT, pts)
-    tm.u_n, tm.v_n = state_from_numpy(u0, v0)
+    tm.u_n, tm.v_n = state_from_numpy(u0, v0, device="cpu")
     _, _, tt, times, ys = tm.rk_record(0.0, 5 * DT, pts)
     assert isinstance(ys, torch.Tensor) and ys.shape == (5, 9)
     assert times.dtype == np.float64 and np.array_equal(times, jtimes)

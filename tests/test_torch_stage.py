@@ -76,7 +76,7 @@ def _torch_args(kind, final, operands):
     return dict(
         kind=kind, u0=t["u0"], v0=t["v0"], kvp=t["kvp"], kvpp=t["kvpp"],
         prev=t["prev"] if final else None,
-        Fs=[coeff_from_jax({k: np.asarray(v) for k, v in F.items()}) for F in Fs],
+        Fs=[coeff_from_jax({k: np.asarray(v) for k, v in F.items()}, device="cpu") for F in Fs],
         dense=[torch.from_numpy(d) for d in dense],
         facets=[{k: torch.from_numpy(v) for k, v in pf.items()} for pf in pfs],
         scal=_scal(kind, final), p=P, final=final,

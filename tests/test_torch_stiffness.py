@@ -54,9 +54,9 @@ def test_pack_matches_jax_layout(degree):
     tensor whose layout differs ([G0, n2|1, G1] → [G0, G1, n2|1])."""
     jlat, tlat, coeffs, _ = _setup(degree)
     pk = LatticePallasStiffness(jlat, interpret=True)
-    for jF, tF in [(pk.pack_const(1.7), pack_const(tlat, 1.7)),
-                   (pk.pack_field(coeffs[0]), pack_field(tlat, coeffs[0]))]:
-        mapped = coeff_from_jax({k: np.asarray(v) for k, v in jF.items()})
+    for jF, tF in [(pk.pack_const(1.7), pack_const(tlat, 1.7, "cpu")),
+                   (pk.pack_field(coeffs[0]), pack_field(tlat, coeffs[0], "cpu"))]:
+        mapped = coeff_from_jax({k: np.asarray(v) for k, v in jF.items()}, device="cpu")
         for k in ("F0", "F1", "F2"):
             assert torch.equal(mapped[k], tF[k]), k
         assert np.array_equal(np.swapaxes(np.asarray(jF["F2"]), 1, 2), tF["F2"].numpy())
@@ -70,12 +70,12 @@ def test_plain_matches_apply_v3(degree, case):
     jlat, tlat, coeffs, xs = _setup(degree)
     pk = LatticePallasStiffness(jlat, interpret=True)
     if case == "const":
-        jFs, tFs, n = [pk.pack_const(1.7)], [pack_const(tlat, 1.7)], 1
+        jFs, tFs, n = [pk.pack_const(1.7)], [pack_const(tlat, 1.7, "cpu")], 1
     elif case == "dg0":
-        jFs, tFs, n = [pk.pack_field(coeffs[0])], [pack_field(tlat, coeffs[0])], 1
+        jFs, tFs, n = [pk.pack_field(coeffs[0])], [pack_field(tlat, coeffs[0], "cpu")], 1
     else:
         jFs = [pk.pack_field(c) for c in coeffs]
-        tFs, n = [pack_field(tlat, c) for c in coeffs], 2
+        tFs, n = [pack_field(tlat, c, "cpu") for c in coeffs], 2
     y_jax = pk.apply([jnp.asarray(x) for x in xs[:n]], jFs)
     y = stiffness_apply([torch.from_numpy(x) for x in xs[:n]], tFs, degree)
     _close(y.numpy(), y_jax)
@@ -87,12 +87,12 @@ def test_plain_matches_apply_scaled(degree):
     JAX package (XLA) and in the port (torch), constant and DG-0."""
     jlat, tlat, coeffs, xs = _setup(degree, seed=1)
     x0, x1 = torch.from_numpy(xs[0]), torch.from_numpy(xs[1])
-    y = stiffness_plain([x0], [pack_const(tlat, 1.7)], degree)
+    y = stiffness_plain([x0], [pack_const(tlat, 1.7, "cpu")], degree)
     scales = jlat.scales_const(1.7)
     y_jax = jax.jit(lambda x: jlat.apply_scaled([(x, scales)]))(jnp.asarray(xs[0]))
     _close(y.numpy(), y_jax)
     _close(y.numpy(), tlat.apply_scaled([(x0, tlat.scales_const(1.7))]).numpy())
-    y = stiffness_plain([x0, x1], [pack_field(tlat, c) for c in coeffs], degree)
+    y = stiffness_plain([x0, x1], [pack_field(tlat, c, "cpu") for c in coeffs], degree)
     pairs = [(x, tlat.scales_field(c)) for x, c in zip((x0, x1), coeffs)]
     _close(y.numpy(), tlat.apply_scaled(pairs).numpy())
 
@@ -100,7 +100,7 @@ def test_plain_matches_apply_scaled(degree):
 def test_wrapper_checks_and_cpu_route():
     _, tlat, coeffs, xs = _setup(2)
     x = torch.from_numpy(xs[0])
-    F = pack_field(tlat, coeffs[0])
+    F = pack_field(tlat, coeffs[0], "cpu")
     before = stiffness_apply.launches
     assert torch.equal(stiffness_apply([x], [F], 2), stiffness_plain([x], [F], 2))
     assert stiffness_apply.launches == before  # the CPU route launches nothing
