@@ -45,7 +45,18 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    through K5a/K5b ``focused`` (peak held against the JAX package's run and
    against phase 7's), the headline through K5 ``linear`` with ``energy()``
    through K4a/K4b, and the lossy and Westervelt channel gates through K5,
-   each followed by 3 steps held against the plain (or unfused) path.
+   each followed by 3 steps held against the plain (or unfused) path;
+12. the whole-step wavefront, with ``FUS_STEP_WAVE=1`` set for the phase: K3
+   (one launch per RK4 step) against its plain version for all four kinds
+   at (9,5,7) (constant and DG-0), (41,1,1), (81,1,1), the HITU lattice
+   (timed for every kind, beside four K2 launches) and, for ``linear``, the
+   headline (timed), inv_m dense and separable for linear and lossy; the
+   step at the HITU lattice on 1 block against the default grid, bit for
+   bit; then HITU W-H101-WATER (one K3 launch per step, peak held against
+   the JAX package's run and phase 7's), the headline (separable inv_m,
+   ``energy()`` through K1) and the lossy and Westervelt channel gates, all
+   through K3, each followed by 3 steps held against the plain (or unfused)
+   path.
 
 Each phase prints its wall time. Every kernel wrapper counts its launches;
 the counts are set to 0 just before a main path runs and read just after.
@@ -77,6 +88,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # two-kernel pipeline switches (read as the JAX package reads them)
 TWO_KERNEL_ENV = {"FUS_STAGE_V3": "0", "FUS_V3": "0"}
+# the whole-step wavefront's switch
+WAVE_ENV = {"FUS_STEP_WAVE": "1"}
 
 
 def say(msg: str) -> None:
@@ -159,47 +172,65 @@ def floor_ms(read: int, written: int, flops: float) -> dict:
 
 def counts() -> dict:
     """The launch count of every kernel wrapper: K1, K4a, K4b (ints) and K2,
-    K5a, K5b (per kind)."""
-    from fenicsxfus_tpu_torch.ops import stage, stage_ab, stiffness
+    K5a, K5b, K3 (per kind)."""
+    from fenicsxfus_tpu_torch.ops import stage, stage_ab, step_wave, stiffness
 
     return {"K1": stiffness.stiffness_apply.launches,
             "K4a": stiffness.stiffness_axis0_apply.launches,
             "K4b": stiffness.stiffness_axes12_apply.launches,
             "K2": dict(stage.stage_apply.launches),
             "K5a": dict(stage_ab.stage_a_apply.launches),
-            "K5b": dict(stage_ab.stage_b_apply.launches)}
+            "K5b": dict(stage_ab.stage_b_apply.launches),
+            "K3": dict(step_wave.step_wave_apply.launches)}
 
 
 def reset_counts() -> None:
-    from fenicsxfus_tpu_torch.ops import stage, stage_ab, stiffness
+    from fenicsxfus_tpu_torch.ops import stage, stage_ab, step_wave, stiffness
 
     for fn in (stiffness.stiffness_apply, stiffness.stiffness_axis0_apply,
                stiffness.stiffness_axes12_apply):
         fn.launches = 0
-    for fn in (stage.stage_apply, stage_ab.stage_a_apply, stage_ab.stage_b_apply):
+    for fn in (stage.stage_apply, stage_ab.stage_a_apply, stage_ab.stage_b_apply,
+               step_wave.step_wave_apply):
         fn.launches.clear()
+
+
+STAGE_KERNELS = ("K2", "K5a", "K5b", "K3")
 
 
 class Pipeline:
     """The kernels one configuration of the port runs: its stage kernels
-    (one launch each per RK stage) and its stiffness kernels."""
+    (``per_step`` launches each per RK4 step), its stiffness kernels, and
+    the stage class (``models/base.py::fused_step``) that runs them."""
 
-    def __init__(self, name, stage, stiffness):
+    def __init__(self, name, stage, stiffness, stage_cls, per_step=4):
         self.name, self.stage, self.stiffness = name, stage, stiffness
+        self.stage_cls, self.per_step = stage_cls, per_step
 
     def plain(self):
-        """The plain version of one stage on this pipeline."""
-        from fenicsxfus_tpu_torch.ops import stage, stage_ab
+        """The plain version of this pipeline's stage function."""
+        from fenicsxfus_tpu_torch.ops import stage, stage_ab, step_wave
 
+        if "K3" in self.stage:
+            return step_wave.step_wave_plain
         return stage_ab.stage_ab_plain if "K5a" in self.stage else stage.stage_plain
 
-    def check(self, c: dict, kind: str, stage_launches: int, stiffness_launches=None):
-        """Raise unless the counts ``c`` show ``stage_launches`` launches of
-        each of this pipeline's stage kernels for ``kind`` and none of the
-        other pipeline's; with ``stiffness_launches``, as many of each of its
-        stiffness kernels, and none of the others."""
-        for k in ("K2", "K5a", "K5b"):
-            want = {kind: stage_launches} if k in self.stage and stage_launches else {}
+    def check_model(self, model) -> None:
+        """Raise unless ``model`` built the fused step on this pipeline."""
+        if model.step_kind != "fused" or model.stage_cls.__name__ != self.stage_cls:
+            raise AssertionError(f"{self.name}: the model took the {model.step_kind} step on "
+                                 f"{model.stage_cls}, expected {self.stage_cls}")
+
+    def check(self, c: dict, kind: str, steps: int, stiffness_launches=None):
+        """Raise unless the counts ``c`` show ``per_step`` launches per RK4
+        step for ``steps`` steps of each of this pipeline's stage kernels for
+        ``kind`` and none of the other pipelines'; with
+        ``stiffness_launches``, as many of each of its stiffness kernels, and
+        none of the others. On K3, also raise if a launch gave up a wait."""
+        from fenicsxfus_tpu_torch.ops.step_wave import step_wave_check
+
+        for k in STAGE_KERNELS:
+            want = {kind: self.per_step * steps} if k in self.stage and steps else {}
             if c[k] != want:
                 raise AssertionError(f"{self.name}: {k} launched {c[k]}, expected {want}: {c}")
         if stiffness_launches is not None:
@@ -207,11 +238,16 @@ class Pipeline:
                 want = stiffness_launches if k in self.stiffness else 0
                 if c[k] != want:
                     raise AssertionError(f"{self.name}: {k} launched {c[k]}, expected {want}")
+        if "K3" in self.stage:
+            step_wave_check()
 
 
-ONE_KERNEL = Pipeline("one-kernel (K2, K1)", ("K2",), ("K1",))
+ONE_KERNEL = Pipeline("one-kernel (K2, K1)", ("K2",), ("K1",), "FusedRKStage")
 # selected by TWO_KERNEL_ENV
-TWO_KERNEL = Pipeline("two-kernel (K5a/K5b, K4a/K4b)", ("K5a", "K5b"), ("K4a", "K4b"))
+TWO_KERNEL = Pipeline("two-kernel (K5a/K5b, K4a/K4b)", ("K5a", "K5b"), ("K4a", "K4b"),
+                      "FusedRKStageAB")
+# selected by WAVE_ENV: one K3 launch per RK4 step
+WAVE = Pipeline("wavefront (K3, K1)", ("K3",), ("K1",), "FusedRKStepWave", per_step=1)
 
 
 @contextlib.contextmanager
@@ -484,10 +520,10 @@ def phase_headline(device, card, nx, pipe: Pipeline = ONE_KERNEL, tag: str = "[5
     say(f"{tag} {nsteps} RK4 steps: solve {solve:.3f} s, {rate:.4f} GDOF-RK4-updates/s, "
         f"setup {setup:.1f} s ({card})")
     say(f"{tag} checksum sum|u| = {checksum:.6e}, energy = {energy:.6e}, launches {launches}")
-    if model.step_kind != "fused":
-        raise AssertionError("the headline model did not take the fused step")
-    # the stage kernels once per RK stage, and energy() through the stiffness kernels once
-    pipe.check(launches, "linear", 4 * nsteps, stiffness_launches=1)
+    pipe.check_model(model)
+    # the stage kernels per_step times per RK4 step, and energy() through
+    # the stiffness kernels once
+    pipe.check(launches, "linear", nsteps, stiffness_launches=1)
     if not (np.isfinite(checksum) and checksum > 0 and np.isfinite(energy) and energy > 0):
         raise AssertionError("headline state is not finite and nonzero")
 
@@ -502,7 +538,8 @@ def phase_headline(device, card, nx, pipe: Pipeline = ONE_KERNEL, tag: str = "[5
     say(f"{tag} 3 steps, kernel path vs plain path: max rel diff {worst:.3e} (gate 1e-4)")
     if not worst <= 1e-4:
         raise AssertionError(f"headline kernel path disagrees with the plain path: {worst:.3e}")
-    return {"launches": launches, "rate": rate, "solve_s": solve, "setup_s": setup}
+    return {"launches": launches, "rate": rate, "solve_s": solve, "setup_s": setup,
+            "separable": "inv_m__sep0" in model.consts}
 
 
 NEW_KINDS = ("lossy", "westervelt", "focused")
@@ -606,9 +643,8 @@ def phase_channel(device, pipe: Pipeline = ONE_KERNEL, tag: str = "[6]") -> dict
         err = relative_l2_error(model.ops, u, lambda x: exact(x, tf))
         say(f"{tag} {kind} channel fp32: {model.step_kind} step, {nsteps} steps in {seconds:.2f} s, "
             f"rel-L2 = {err:.3e} (gate {gate:g}), launches {launches[kind]}")
-        if model.step_kind != "fused":
-            raise AssertionError(f"the {kind} channel model did not take the fused step")
-        pipe.check(c, kind, 4 * nsteps)
+        pipe.check_model(model)
+        pipe.check(c, kind, nsteps)
         if not err < gate:
             raise AssertionError(f"{kind} channel rel-L2 {err:.3e} >= {gate:g}")
         # 3 more steps at this shape: the kernel path against the plain path
@@ -650,9 +686,8 @@ def phase_hitu(device, card, pipe: Pipeline = ONE_KERNEL, tag: str = "[7]",
         f"steps, {model.step_kind} step, launches {launches}")
     say(f"{tag} setup {res.setup_s:.2f} s, solve {res.solve_s:.3f} s, {rate:.4f} "
         f"GDOF-RK4-updates/s, device memory peak {peak_gib:.3f} GiB ({card})")
-    if model.step_kind != "fused":
-        raise AssertionError("the HITU model did not take the fused step")
-    pipe.check(launches, "focused", 4 * res.nsteps, stiffness_launches=0)
+    pipe.check_model(model)
+    pipe.check(launches, "focused", res.nsteps, stiffness_launches=0)
     amp, x = res.amplitude, res.x
     if amp.shape != (161,) or not np.all(np.isfinite(amp)):
         raise AssertionError("HITU axial amplitude is not 161 finite values")
@@ -877,6 +912,148 @@ def phase_two_kernel(device, card, k2_peak: float) -> dict:
     return {"hitu": hitu_run, "headline": headline, "channel": channel}
 
 
+WAVE_DT = 0.02  # dt of the K3 step tables: keeps m0 − d2·un away from 0
+WAVE_SRC = (1.7, -0.6, 0.9, 0.4)
+
+
+def _wave_inputs(kind, lat, device, gen, rng, scale, dg0=False, sep=False):
+    """Random K3 operands of ``kind`` on lattice ``lat`` (those of
+    ``_stage_inputs``, inv_m separable with ``sep``) and an RK4 step table
+    at dt = WAVE_DT with distinct source coefficients per stage."""
+    import torch
+
+    from fenicsxfus_tpu_torch.models.common import explicit_tables
+    from fenicsxfus_tpu_torch.ops.stage import KIND_FACET
+    from fenicsxfus_tpu_torch.ops.step_wave import step_table
+
+    st = _stage_inputs(kind, lat, device, gen, rng, False, scale, dg0)
+    dense = st["dense"]
+    if sep:
+        G0, G1, G2 = lat.gdims
+        dense = [torch.rand(shape, generator=gen, device=device) + 0.5
+                 for shape in ((G0,), (1, G1, G2))]
+    nsrc = len(KIND_FACET[kind]) - 1
+    srcs = [[x * (1.0 + 0.1 * i) for x in WAVE_SRC[:nsrc]] for i in range(4)]
+    return dict(kind=kind, u0=st["u0"], v0=st["v0"],
+                scal4=step_table(kind, explicit_tables(4), WAVE_DT, srcs), Fs=st["Fs"],
+                dense=dense, facets=st["facets"], p=lat.p)
+
+
+def wave_floor(args: dict) -> dict:
+    """``floor_ms`` of one K3 launch on the operands ``args`` of
+    ``_wave_inputs``: u0, v0, the coefficients, the dense (or separable)
+    extras and the facets read once, u1 and v1 written once; four stages of
+    stencil and node arithmetic."""
+    from fenicsxfus_tpu_torch.ops.stage import KIND_FIELDS
+
+    u0 = args["u0"]
+    gd, nodes = tuple(u0.shape), float(u0.numel())
+    read = nbytes(u0, args["v0"], args["Fs"], args["dense"], args["facets"])
+    flops = 4 * (stencil_flops(gd, args["p"], KIND_FIELDS[args["kind"]], (0, 1, 2))
+                 + STAGE_NODE_FLOPS * nodes)
+    return floor_ms(read, 2 * nbytes(u0), flops)
+
+
+def phase_k3(device, card) -> dict:
+    """K3 against its plain version for all four kinds (inv_m dense and
+    separable for linear and lossy), beside four K2 launches of the same
+    step; timings at the HITU lattice (every kind) and at the headline
+    (``linear``); the grid-size check at the HITU lattice."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
+    from fenicsxfus_tpu_torch.ops.stage import KIND_FIELDS, stage_apply
+    from fenicsxfus_tpu_torch.ops.step_wave import (
+        SEP_KINDS, step_wave_apply, step_wave_check, step_wave_plain,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device=device).manual_seed(12)
+    headline = (HEADLINE_NX,) * 3
+    cases = [((9, 5, 7), False), ((9, 5, 7), True), ((41, 1, 1), False), ((81, 1, 1), True),
+             (HITU_GRID, False)]
+    out = {}
+    for kind in sorted(KIND_FIELDS):
+        for grid, dg0 in cases + ([(headline, False)] if kind == "linear" else []):
+            if grid == headline:
+                lat, scale = _lattice(grid, 4, torch.float32), 1.0 / 1000.0
+            else:
+                lat, scale = LatticeStiffness(grid, 4, (1.0, 1.0, 1.0), torch.float32), 1.0
+            # the headline runs linear on a separable inv_m only
+            forms = (True,) if grid == headline else (
+                (False, True) if kind in SEP_KINDS else (False,))
+            for sep in forms:
+                args = _wave_inputs(kind, lat, device, gen, rng, scale, dg0, sep)
+                got = step_wave_apply(**args)
+                ref = step_wave_plain(**args)
+                k2 = step_wave_plain(**args, stage_fn=stage_apply)
+                step_wave_check()
+                torch.cuda.synchronize()
+                worst = max(rel_err(a, b) for a, b in zip(got, ref))
+                vs_k2 = max(rel_err(a, b) for a, b in zip(got, k2))
+                same = all(torch.equal(a, b) for a, b in zip(got, k2))
+                form = ("DG-0" if dg0 else "const") + (", inv_m separable" if sep else "")
+                say(f"[12] K3 {kind} grid={grid} p=4 {form}: max|d|/max|ref| = {worst[0]:.3e}; "
+                    f"against four K2 launches {vs_k2[0]:.3e} (bit for bit: {same})")
+                if not worst[0] <= TOL:
+                    raise AssertionError(
+                        f"K3 {kind} disagrees with its plain version: {worst[0]:.3e} > {TOL}")
+                if grid in (HITU_GRID, headline):
+                    ms = cuda_median_ms(lambda: step_wave_apply(**args))
+                    pms = cuda_median_ms(lambda: step_wave_plain(**args))
+                    k2ms = cuda_median_ms(lambda: step_wave_plain(**args, stage_fn=stage_apply))
+                    step_wave_check()
+                    where = "headline" if grid == headline else "HITU lattice"
+                    say(f"[12] K3 {kind} {where} {form}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                        f"four K2 launches {k2ms:.3f} ms (median of 10, CUDA events; {card})")
+                    # the entry of the kernels line: the shape and inv_m form
+                    # of the kind's main path (the headline for linear)
+                    main_form = sep == (kind in SEP_KINDS)
+                    if main_form and (grid == headline or kind != "linear"):
+                        out[kind] = {"max_abs_err": worst[1], "ms": ms, "plain_ms": pms,
+                                     "k2_ms": k2ms, **wave_floor(args)}
+                del args, got, ref, k2
+                torch.cuda.synchronize()
+
+    # the grid-size check: 1 block against the default grid, bit for bit
+    lat = LatticeStiffness(HITU_GRID, 4, (1.0, 1.0, 1.0), torch.float32)
+    args = _wave_inputs("focused", lat, device, gen, rng, 1.0)
+    t0 = time.perf_counter()
+    one = step_wave_apply(**args, grid=1)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    full = step_wave_apply(**args)
+    step_wave_check()
+    same = all(torch.equal(a, b) for a, b in zip(one, full))
+    say(f"[12] K3 focused HITU lattice on 1 block ({t_one:.2f} s) against the default grid: "
+        f"bit for bit {same}")
+    if not same:
+        raise AssertionError("K3 on 1 block differs from K3 on the default grid")
+    del args, one, full
+    torch.cuda.synchronize()
+    say(f"[12] kernels done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_wave(device, card, k2_peak: float) -> dict:
+    """The wavefront's main path with its switch set for the phase: HITU,
+    the headline (on a separable inv_m) and the channel gates, through K3."""
+    t_phase = time.perf_counter()
+    with environment(WAVE_ENV):
+        say(f"[12] switches {WAVE_ENV}")
+        hitu_run = phase_hitu(device, card, WAVE, "[12]", k2_peak=k2_peak)
+        say(f"[12] HITU done at {time.perf_counter() - t_phase:.1f} s")
+        headline = phase_headline(device, card, HEADLINE_NX, WAVE, "[12]")
+        say(f"[12] headline took inv_m separable: {headline['separable']}")
+        if not headline["separable"]:
+            raise AssertionError("the headline on K3 did not take inv_m separable")
+        say(f"[12] headline done at {time.perf_counter() - t_phase:.1f} s")
+        channel = phase_channel(device, WAVE, "[12]")
+    say(f"[12] done in {time.perf_counter() - t_phase:.1f} s")
+    return {"hitu": hitu_run, "headline": headline, "channel": channel}
+
+
 def main() -> int:
     import torch
 
@@ -901,10 +1078,16 @@ def main() -> int:
     k4 = phase_k4(device, card)
     k5 = phase_k5(device, card)
     two = phase_two_kernel(device, card, hitu_run["peak_pa"])
+    k3 = phase_k3(device, card)
+    wave = phase_wave(device, card, hitu_run["peak_pa"])
+    say(f"[12] HITU solve: K3 {wave['hitu']['solve_s']:.3f} s against K2 "
+        f"{hitu_run['solve_s']:.3f} s; headline: K3 {wave['headline']['rate']:.4f} against K2 "
+        f"{run['rate']:.4f} GDOF-RK4-updates/s ({card})")
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
-    # from phase [11] (HITU for focused, the headline for linear and for the
-    # stiffness through energy(), the channels for lossy and westervelt)
+    # from phase [11], K3 from phase [12] (HITU for focused, the headline
+    # for linear and for the stiffness through energy(), the channels for
+    # lossy and westervelt)
     def stage_launches(headline_run, channel_runs, hitu, k):
         return {"linear": headline_run["launches"][k]["linear"],
                 **{kind: channel_runs[kind][k] for kind in ("lossy", "westervelt")},
@@ -939,6 +1122,10 @@ def main() -> int:
                           f"fenicsxfus_tpu/ops/pallas_stage.py:{line}", k5_launches[k][kind],
                           k5[kind][k])
                     for kind in ("linear",) + NEW_KINDS]
+    k3_launches = stage_launches(wave["headline"], wave["channel"], wave["hitu"], "K3")
+    kernels += [entry(f"step_wave_apply {kind} (K3)", "step_wave.cu",
+                      "fenicsxfus_tpu/ops/pallas_step_wave.py:624", k3_launches[kind], k3[kind])
+                for kind in ("linear",) + NEW_KINDS]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

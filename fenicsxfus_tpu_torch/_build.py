@@ -115,8 +115,10 @@ def library() -> ctypes.CDLL:
     lib.fus_stage.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _I]
     lib.fus_stage_a.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _P, _I]
     lib.fus_stage_b.argtypes = lib.fus_stage.argtypes
+    lib.fus_step_wave.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _P, _I,
+                                  _P, _I]
     for name in ("fus_stiffness_apply", "fus_stiffness_axis0", "fus_stiffness_axes12",
-                 "fus_stage", "fus_stage_a", "fus_stage_b"):
+                 "fus_stage", "fus_stage_a", "fus_stage_b", "fus_step_wave"):
         getattr(lib, name).restype = _I
     lib.fus_error_string.argtypes = [_I]
     lib.fus_error_string.restype = ctypes.c_char_p

@@ -1,6 +1,7 @@
 // Shared device and host code of the RK stage kernels: K2 (stage.cu, one
-// launch per stage) and K5a/K5b (stage_ab.cu, the stage split at the
-// axis-0 / axes-1,2 boundary). The kinds, the argument struct and its
+// launch per stage), K5a/K5b (stage_ab.cu, the stage split at the
+// axis-0 / axes-1,2 boundary) and K3 (step_wave.cu, the four stages of an
+// RK4 step in one launch). The kinds, the argument struct and its
 // unpacking from the C entries' operand slots, the stage fields formed at
 // each stencil read, the packed facet terms, the kind's epilogue and the
 // final stage's step update live here once.
@@ -69,24 +70,46 @@ struct StageArgs {
   T* yA;  // axis-0 partial: written by K5a, read by K5b; unused by K2
 };
 
-// (un, vn) formed at each read; NF = 1 reads un only.
-template <typename T, int NF>
+// How a kernel reads the slopes kvp, kvpp and prev. K2 and K5 read slopes
+// that an earlier launch wrote: read-only for the whole kernel, so through
+// the read-only cache (ld.global.nc) in the stencil and plainly at the node.
+// K3 (step_wave.cu) reads slopes that other blocks of the same launch wrote
+// and released, so always plainly: a plain (weak) load ordered after the
+// block's acquire observes the released writes (PTX memory model), while
+// ld.global.nc is valid only for data that no one writes during the kernel.
+struct ReadOnlyLoad {
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* p, long long i) const {
+    return __ldg(p + i);
+  }
+};
+struct PlainLoad {
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* p, long long i) const {
+    return p[i];
+  }
+};
+
+// (un, vn) formed at each read; NF = 1 reads un only. u0 and v0 are
+// read-only in every launch; the slopes are read through Ld.
+template <typename T, int NF, typename Ld = ReadOnlyLoad>
 struct StageFields {
   const T *u0, *v0, *kvp, *kvpp;
   T alpha, beta;
   __device__ __forceinline__ Vals<T, NF> operator()(long long i) const {
+    const Ld ld{};
     Vals<T, NF> r;
     const T v = __ldg(v0 + i);
     T un = __ldg(u0 + i) + alpha * v;
-    if (kvpp != nullptr) un += beta * __ldg(kvpp + i);
+    if (kvpp != nullptr) un += beta * ld(kvpp, i);
     r.v[0] = un;
-    if constexpr (NF > 1) r.v[1] = kvp != nullptr ? v + alpha * __ldg(kvp + i) : v;
+    if constexpr (NF > 1) r.v[1] = kvp != nullptr ? v + alpha * ld(kvp, i) : v;
     return r;
   }
 };
 
-template <typename T, int KIND>
-__device__ __forceinline__ StageFields<T, KindTraits<KIND>::NF> stage_fields(
+template <typename T, int KIND, typename Ld = ReadOnlyLoad>
+__device__ __forceinline__ StageFields<T, KindTraits<KIND>::NF, Ld> stage_fields(
     const StageArgs<T>& a) {
   return {a.u0, a.v0, a.kvp, a.kvpp, a.alpha, a.beta};
 }
@@ -113,12 +136,17 @@ __device__ __forceinline__ T facet_at(const PackedFacet<T>& pf, const Lattice& L
 //   linear, lossy:       kv = (-acc + corr) * inv_m
 //   westervelt, focused: kv = (d2*vn^2 - acc + corr) / (m0 - d2*un)
 // and the store of kv, or on the final stage of the step update u1, v1.
-template <typename T, int KIND>
+// SEP (K3, linear and lossy only): inv_m is separable and arrives as
+// dense[0] = a [G0] and dense[1] = P [G1, G2], inv_m[g] = a[g0] * P[g1, g2].
+// The slopes are read through Ld.
+template <typename T, int KIND, bool SEP = false, typename Ld = PlainLoad>
 __device__ __forceinline__ void stage_finish(const StageArgs<T>& a, const Lattice& L,
                                              long long node, int g0, int g1, int g2, T acc) {
   using Tr = KindTraits<KIND>;
+  static_assert(!(SEP && Tr::NONLINEAR), "a separable inv_m is for linear and lossy only");
+  const Ld ld{};
   const T v0 = a.v0[node];
-  const T kvp = a.kvp != nullptr ? a.kvp[node] : (T)0;
+  const T kvp = a.kvp != nullptr ? ld(a.kvp, node) : (T)0;
   const T vn = a.kvp != nullptr ? v0 + a.alpha * kvp : v0;
   T corr = 0;
   if (g0 == 0 || g0 == L.G0 - 1 || g1 == 0 || g1 == L.G1 - 1 || g2 == 0 ||
@@ -130,9 +158,11 @@ __device__ __forceinline__ void stage_finish(const StageArgs<T>& a, const Lattic
   T kv;
   if constexpr (Tr::NONLINEAR) {
     T un = a.u0[node] + a.alpha * v0;
-    if (a.kvpp != nullptr) un += a.beta * a.kvpp[node];
+    if (a.kvpp != nullptr) un += a.beta * ld(a.kvpp, node);
     const T d2 = a.dense[1][node];
     kv = (d2 * (vn * vn) - acc + corr) / (a.dense[0][node] - d2 * un);
+  } else if constexpr (SEP) {
+    kv = (-acc + corr) * (a.dense[0][g0] * a.dense[1][(long long)g1 * L.G2 + g2]);
   } else {
     kv = (-acc + corr) * a.dense[0][node];
   }
@@ -143,8 +173,8 @@ __device__ __forceinline__ void stage_finish(const StageArgs<T>& a, const Lattic
   // slopes in stage order: [kv_{i-3}], [kv_{i-2}], [kv_{i-1}], kv_i
   T kvs[4];
   int ns = 0;
-  if (a.prev != nullptr) kvs[ns++] = a.prev[node];
-  if (a.kvpp != nullptr) kvs[ns++] = a.kvpp[node];
+  if (a.prev != nullptr) kvs[ns++] = ld(a.prev, node);
+  if (a.kvpp != nullptr) kvs[ns++] = ld(a.kvpp, node);
   if (a.kvp != nullptr) kvs[ns++] = kvp;
   kvs[ns++] = kv;
   T u1 = a.u0[node] + a.sb * v0;

@@ -5,8 +5,9 @@ Port of ``fenicsxfus_tpu/models/base.py`` (``source_amplitudes``,
 or cell-wise DG-0), the windowed transducer source g(t) on facet tag 1, the
 Sommerfeld ABC on facet tag 2, point sensors, and the explicit-RK driver
 with in-loop recording (``rk_record``). The step is the fused one (one K2
-launch per RK stage; K5a then K5b with ``FUS_STAGE_V3=0``) when the model
-declares a fused kind and its boundary vectors live on the box faces;
+launch per RK stage; K5a then K5b with ``FUS_STAGE_V3=0``; one K3 launch per
+RK4 step with ``FUS_STEP_WAVE=1``) when the model declares a fused kind and
+its boundary vectors live on the box faces, unless ``FUS_FUSED=0``;
 otherwise the reference a-vector RK step over ``rhs_pure`` (K1, or K4a then
 K4b with ``FUS_V3=0``, plus elementwise torch).
 
@@ -27,6 +28,7 @@ from ..core.gll import gll_points_weights_01, lagrange_eval_gll
 from ..ops.operators import SEMOperators
 from ..ops.stage import KIND_DENSE, KIND_FACET, FusedRKStage, pack_facet_vector
 from ..ops.stage_ab import FusedRKStageAB
+from ..ops.step_wave import FusedRKStepWave, try_separate_field
 from .common import (
     explicit_tables,
     make_recording_scan,
@@ -182,6 +184,7 @@ class ExplicitModelBase(SpectralModelBase):
         self.consts: dict = {}
         self._solve = None  # built lazily after subclass setup
         self.step_kind = None  # "fused" or "unfused" once built
+        self.stage_cls = None  # the stage class of the last fused step built
 
     def unfused_step(self):
         """The reference a-vector RK step over ``rhs_pure`` (K1 per stage)."""
@@ -191,19 +194,25 @@ class ExplicitModelBase(SpectralModelBase):
         )
 
     def fused_step(self, stage_fn=None):
-        """The fused step (one ``stage_fn`` call per RK stage), or None when
-        the model declares no fused kind, a stiffness coefficient is not
-        packed, or a boundary vector has interior support.
+        """The fused step (one ``stage_fn`` call per RK stage, or per step
+        on the wave class), or None when ``FUS_FUSED=0`` forces the unfused
+        step, the model declares no fused kind, a stiffness coefficient is
+        not packed, or a boundary vector has interior support.
 
-        The switch ``FUS_STAGE_V3``, read here when the step is built (as the
-        JAX package's ``_try_fused_step`` reads it), picks the kernels: one
-        K2 launch per stage (``ops.stage.FusedRKStage``, the default), or
-        with ``FUS_STAGE_V3=0`` the two-kernel stage, K5a then K5b
-        (``ops.stage_ab.FusedRKStageAB``). ``stage_fn`` replaces them with a
-        function of the same signature: ``stage_plain`` or
-        ``stage_ab_plain`` runs the plain path on any device."""
+        The switches, read here when the step is built (as the JAX package's
+        ``_try_fused_step`` reads them), pick the kernels: one K2 launch per
+        stage (``ops.stage.FusedRKStage``, the default); with
+        ``FUS_STAGE_V3=0`` the two-kernel stage, K5a then K5b
+        (``ops.stage_ab.FusedRKStageAB``); with ``FUS_STEP_WAVE=1``, unless
+        ``FUS_STAGE_V3=0``, and at ``rk_order == 4`` only, one K3 launch per
+        step (``ops.step_wave.FusedRKStepWave``), with inv_m passed
+        separable (``consts["inv_m__sep0"]``/``["inv_m__sepP"]``) when it is
+        rank one. ``self.stage_cls`` names the class taken. ``stage_fn``
+        replaces the kernels with a function of the same signature:
+        ``stage_plain``, ``stage_ab_plain`` or ``step_wave_plain`` runs the
+        plain path on any device."""
         kind = type(self).__dict__.get("FUSED_KIND")
-        if not kind:
+        if not kind or os.environ.get("FUS_FUSED", "") == "0":
             return None
         keys = type(self).STIFF_KEYS
         if not all(isinstance(self.consts.get(k), dict) for k in keys):
@@ -224,13 +233,22 @@ class ExplicitModelBase(SpectralModelBase):
                 }
         two_kernel = os.environ.get("FUS_STAGE_V3", "1") == "0"
         stage_cls = FusedRKStageAB if two_kernel else FusedRKStage
+        dense_get = lambda c: [c[k].view(gdims) for k in dense_keys]  # noqa: E731
+        if (not two_kernel and self.rk_order == 4
+                and os.environ.get("FUS_STEP_WAVE", "") == "1"):
+            stage_cls = FusedRKStepWave
+            if dense_keys == ("inv_m",) and "inv_m__sep0" not in self.consts:
+                sep = try_separate_field(self.consts["inv_m"].cpu().numpy(), gdims)
+                if sep is not None:
+                    self.consts["inv_m__sep0"], self.consts["inv_m__sepP"] = (
+                        self.ops.to_device(x) for x in sep)
+            if "inv_m__sep0" in self.consts:
+                dense_get = lambda c: [c["inv_m__sep0"], c["inv_m__sepP"]]  # noqa: E731
+        self.stage_cls = stage_cls
         stage = stage_cls(gdims, self.degree, kind, explicit_tables(self.rk_order))
         return stage.make_step(
             lambda c: [c[k] for k in keys],
-            lambda c: (
-                [c[k].view(gdims) for k in dense_keys],
-                [c[k + "__pf"] for k in facet_keys],
-            ),
+            lambda c: (dense_get(c), [c[k + "__pf"] for k in facet_keys]),
             stage_fn=stage_fn,
         )
 

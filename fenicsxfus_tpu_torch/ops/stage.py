@@ -224,18 +224,23 @@ def check_stage(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final
         raise ValueError(
             f"kind {kind!r} takes dense {KIND_DENSE[kind]} and facets {KIND_FACET[kind]}"
         )
-    gdims = tuple(u0.shape)
-    check_fields(dense, gdims, u0.dtype, u0.device)
-    G0, G1, G2 = gdims
-    want = {"xp": (2, G1, G2), "ye": (G0, 2, G2), "ze": (G0, G1, 2)}
-    for pf in facets:
-        for name, shape in want.items():
-            check_fields([pf[name]], shape, u0.dtype, u0.device)
+    check_fields(dense, tuple(u0.shape), u0.dtype, u0.device)
+    check_facets(facets, u0)
     ns = len(state) - 1
     n_scal = 1 + len(facets) + (2 * ns if final else 0)
     if len(scal) != n_scal:
         raise ValueError(f"scal has {len(scal)} entries, expected {n_scal}")
     return exts
+
+
+def check_facets(facets, u0):
+    """Raise unless every packed facet vector has the parts of u0's lattice,
+    in u0's dtype and on its device."""
+    G0, G1, G2 = u0.shape
+    want = {"xp": (2, G1, G2), "ye": (G0, 2, G2), "ze": (G0, G1, 2)}
+    for pf in facets:
+        for name, shape in want.items():
+            check_fields([pf[name]], shape, u0.dtype, u0.device)
 
 
 def stage_pointers(u0, v0, kvp, kvpp, prev, Fs, dense, facets, outs, exts):

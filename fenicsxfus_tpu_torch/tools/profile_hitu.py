@@ -1,11 +1,13 @@
 """Where the time of the HITU W-H101-WATER focused path goes, on one CUDA
 device: per-stage times of its stage kernels by CUDA events (K2 ``focused``,
-or with ``FUS_STAGE_V3=0`` K5a and K5b), the sensor gather, the host-clock
-step time of ``rk_record``, and a ``torch.profiler`` window of 10
-``rk_record`` steps (device busy share).
+with ``FUS_STAGE_V3=0`` K5a and K5b, or with ``FUS_STEP_WAVE=1`` the one K3
+launch per step), the sensor gather, the host-clock step time of
+``rk_record``, and a ``torch.profiler`` window of 10 ``rk_record`` steps
+(device busy share).
 
     python3 fenicsxfus_tpu_torch/tools/profile_hitu.py
     FUS_STAGE_V3=0 FUS_V3=0 python3 fenicsxfus_tpu_torch/tools/profile_hitu.py
+    FUS_STEP_WAVE=1 python3 fenicsxfus_tpu_torch/tools/profile_hitu.py
 
 Runs from any directory; it imports the package of the checkout it lies in.
 """
@@ -23,6 +25,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from fenicsxfus_tpu_torch.drivers import hitu  # noqa: E402
 from fenicsxfus_tpu_torch.ops.stage import stage_apply  # noqa: E402
 from fenicsxfus_tpu_torch.ops.stage_ab import stage_a_apply, stage_b_apply  # noqa: E402
+from fenicsxfus_tpu_torch.ops.step_wave import (  # noqa: E402
+    FusedRKStepWave, step_wave_apply, step_wave_check,
+)
 
 
 def main() -> None:
@@ -36,10 +41,12 @@ def main() -> None:
     model.rk_record(0.0, 400 * dt, pts)
     torch.cuda.synchronize()
 
-    # per-stage kernel times over 5 steps
+    # per-stage (K3: per-step) kernel times over 5 steps
+    wave = model.stage_cls is FusedRKStepWave
     two_kernel = os.environ.get("FUS_STAGE_V3", "1") == "0"
-    names = ("K5a", "K5b") if two_kernel else ("K2",)
-    events = {(n, i): [] for n in names for i in range(4)}
+    names = ("K3",) if wave else ("K5a", "K5b") if two_kernel else ("K2",)
+    slots = 1 if wave else 4  # launches of each kernel per step
+    events = {(n, i): [] for n in names for i in range(slots)}
     count = [0]
 
     def timer(fn, name):
@@ -48,13 +55,15 @@ def main() -> None:
             a.record()
             out = fn(*args)
             b.record()
-            events[(name, count[0] % 4)].append((a, b))
+            events[(name, count[0] % slots)].append((a, b))
             if name != "K5a":
                 count[0] += 1
             return out
         return timed
 
-    if two_kernel:
+    if wave:
+        stage_fn = timer(step_wave_apply, "K3")
+    elif two_kernel:
         time_a, time_b = timer(stage_a_apply, "K5a"), timer(stage_b_apply, "K5b")
 
         def stage_fn(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final):
@@ -69,11 +78,13 @@ def main() -> None:
     for _ in range(5):
         u, v, t = step(model.consts, (u, v, t), dt)
     torch.cuda.synchronize()
+    step_wave_check()
     total = 0.0
     for n in names:
-        per = [float(np.median([a.elapsed_time(b) for a, b in events[(n, i)]])) for i in range(4)]
+        per = [float(np.median([a.elapsed_time(b) for a, b in events[(n, i)]]))
+               for i in range(slots)]
         total += sum(per)
-        print(f"{n} focused per stage (median of 5 steps, CUDA events): "
+        print(f"{n} focused per {'step' if wave else 'stage'} (median of 5 steps, CUDA events): "
               + " / ".join(f"{x:.3f}" for x in per) + f" ms; sum {sum(per):.3f} ms", flush=True)
     print(f"stage kernels per step: {total:.3f} ms", flush=True)
 

@@ -114,7 +114,7 @@ def test_port_imports_no_jax():
         "fenicsxfus_tpu_torch.analysis.analytical, fenicsxfus_tpu_torch.utils, "
         "fenicsxfus_tpu_torch.models.lossy, fenicsxfus_tpu_torch.models.westervelt, "
         "fenicsxfus_tpu_torch.models.focused, fenicsxfus_tpu_torch.drivers.hitu, "
-        "fenicsxfus_tpu_torch.ops.stage_ab, chip_smoke; "
+        "fenicsxfus_tpu_torch.ops.stage_ab, fenicsxfus_tpu_torch.ops.step_wave, chip_smoke; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -20,7 +20,8 @@ from fenicsxfus_tpu_torch import (
     tag_boundaries,
 )
 from fenicsxfus_tpu_torch.convert import state_from_numpy
-from fenicsxfus_tpu_torch.models.common import make_scan_from_step
+from fenicsxfus_tpu_torch.models.common import explicit_tables, make_scan_from_step
+from fenicsxfus_tpu_torch.ops import step_wave
 from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
 from fenicsxfus_tpu_torch.ops.stage import (
     KIND_DENSE,
@@ -35,6 +36,13 @@ from fenicsxfus_tpu_torch.ops.stage_ab import (
     stage_a_plain,
     stage_b_apply,
     stage_b_plain,
+)
+from fenicsxfus_tpu_torch.ops.step_wave import (
+    FusedRKStepWave,
+    step_table,
+    step_wave_apply,
+    step_wave_check,
+    step_wave_plain,
 )
 from fenicsxfus_tpu_torch.ops.stiffness import (
     pack_const,
@@ -294,3 +302,107 @@ def test_two_kernel_focused_model_on_gpu_matches_cpu(cuda, monkeypatch):
     assert _rel(outs[1][1], outs[0][1]) < 1e-12
     assert _rel(outs[1][3], outs[0][3]) < 1e-12
     assert _rel(outs[1][3], outs[1][0]) < 1e-12
+
+
+def _wave_args(kind, lat, rng, device, dg0, sep):
+    """Random K3 operands of ``kind``: the step state, coefficients, dense
+    extras (for ``sep`` the separable (a, P) of inv_m), packed facets and a
+    step table at dt = 0.02."""
+    args = _stage_args(kind, lat, rng, device, (0, 0, 0), False, dg0)
+    _, u0, v0, _, _, _, Fs, dense, facets, _, p, _ = args
+    G0, G1, G2 = lat.gdims
+    if sep:
+        dense = [torch.as_tensor(rng.uniform(0.5, 1.5, shape), dtype=lat.dtype, device=device)
+                 for shape in ((G0,), (1, G1, G2))]
+    srcs = [list(rng.uniform(-2.0, 2.0, len(KIND_FACET[kind]) - 1)) for _ in range(4)]
+    return dict(kind=kind, u0=u0, v0=v0, scal4=step_table(kind, explicit_tables(4), 0.02, srcs),
+                Fs=Fs, dense=dense, facets=facets, p=p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", sorted(KIND_FIELDS))
+@pytest.mark.parametrize("grid", GRIDS)
+def test_k3_matches_plain(grid, kind, dtype, cuda):
+    """K3 (a whole RK4 step in one launch) against ``step_wave_plain``:
+    constant and DG-0 coefficients, and inv_m separable for linear and
+    lossy."""
+    lat = LatticeStiffness(grid, 4, (0.1, 0.14, 0.07), dtype)
+    rng = np.random.default_rng(len(kind))
+    forms = [(False, False), (True, False)]
+    forms += [(False, True), (True, True)] if kind in ("linear", "lossy") else []
+    for dg0, sep in forms:
+        args = _wave_args(kind, lat, rng, cuda, dg0, sep)
+        before = step_wave_apply.launches[kind]
+        got = step_wave_apply(**args)
+        assert step_wave_apply.launches[kind] == before + 1
+        ref = step_wave_plain(**args)
+        step_wave_check()
+        for a, b in zip(got, ref):
+            assert _rel(a, b) < TOLS[dtype]
+
+
+def test_k3_result_does_not_depend_on_the_grid(cuda):
+    """The ticket order makes the step independent of how many blocks run
+    it: 1 block, a few, as many as are resident (0), and more than there
+    are work items give u1, v1 bit for bit."""
+    lat = LatticeStiffness((20, 9, 9), 4, (0.1, 0.14, 0.07), torch.float32)
+    args = _wave_args("focused", lat, np.random.default_rng(3), cuda, True, False)
+    ref = step_wave_apply(**args, grid=0)
+    for grid in (1, 7, 100000):
+        got = step_wave_apply(**args, grid=grid)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    step_wave_check()
+
+
+def test_k3_error_word_raises(cuda):
+    """A set error word (what a dependency wait that gave up leaves) stops
+    every later launch at once, and the wrapper raises; the word is then
+    cleared and the next step is right again."""
+    lat = LatticeStiffness(GRID, 4, (0.1, 0.14, 0.07), torch.float32)
+    args = _wave_args("linear", lat, np.random.default_rng(4), cuda, False, False)
+    step_wave_check()
+    step_wave._error_word(cuda).fill_(1)
+    step_wave_apply(**args)
+    with pytest.raises(RuntimeError, match="dependency wait"):
+        step_wave_check()
+    got = step_wave_apply(**args)
+    step_wave_check()
+    assert _rel(got[0], step_wave_plain(**args)[0]) < TOLS[torch.float32]
+
+
+@pytest.mark.parametrize("name", ["linear", "focused"])
+def test_k3_model_matches_k2_model(name, cuda, monkeypatch):
+    """``FUS_STEP_WAVE=1``: the fp64 model on the card through K3 (5
+    launches for 5 RK4 steps, none of K2; linear in a homogeneous medium
+    with inv_m separable) equals the same model through K2."""
+    rng = np.random.default_rng(9)
+    c0, rho0 = ((1500.0, 1000.0) if name == "linear"
+                else (rng.uniform(1400, 1600, 96), rng.uniform(900, 1100, 96)))
+    u0, v0 = None, None
+    outs = []
+    for wave in (False, True):
+        monkeypatch.setenv("FUS_STEP_WAVE", "1" if wave else "0")
+        mesh = create_box((6, 4, 4), (0, 0, 0), (1.0, 0.5, 0.5))
+        if name == "linear":
+            tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > 1 - 1e-12})
+            m = LinearSpectralExplicit(mesh, None, 3, c0, rho0, 0.5e6, 6e4, 1500.0, 4, 1e-8,
+                                       dtype=torch.float64, device=cuda)
+        else:
+            tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12}, default=2)
+            m = WesterveltSpectralFocused(
+                mesh, None, 3, c0, rho0, 4e-3, 3.5, 0.5e6, 6e4, 1500.0, 4, 1e-8,
+                aperture_radius=0.2, focal_distance=0.6, center=np.array([0.0, 0.25, 0.25]),
+                dtype=torch.float64, device=cuda)
+        assert (m.stage_cls is FusedRKStepWave) == wave
+        assert ("inv_m__sep0" in m.consts) == (wave and name == "linear")
+        if u0 is None:
+            u0, v0 = (rng.standard_normal(m.number_of_dofs()) for _ in range(2))
+        m.u_n, m.v_n = state_from_numpy(u0, v0, m.device)
+        before = step_wave_apply.launches[name], stage_apply.launches[name]
+        u, v, _ = m.rk(0.0, 5e-8)
+        step_wave_check()
+        after = step_wave_apply.launches[name], stage_apply.launches[name]
+        outs.append((u, v, (after[0] - before[0], after[1] - before[1])))
+    assert outs[0][2] == (0, 20) and outs[1][2] == (5, 0)
+    assert _rel(outs[1][0], outs[0][0]) < 1e-12
+    assert _rel(outs[1][1], outs[0][1]) < 1e-12
