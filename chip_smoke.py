@@ -7,11 +7,14 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
 
 0. versions of torch, CUDA and nvcc, and the card's name and power limit;
 1. build the CUDA kernels from ``fenicsxfus_tpu_torch/csrc`` (first use);
-2. K1 (stiffness) against its plain torch version, fp32, on (9,5,7) at
-   p = 2, 3, 4 and on the 104³ p=4 headline lattice, constant and DG-0
-   coefficients, with CUDA-event timings at the headline;
-3. K2 (fused RK stage) against its plain version, a non-final and a final
-   stage, at (9,5,7) p=4 and at the headline;
+2. K1 (stiffness, the tiled stencil of ``csrc/tile.cuh``) against its
+   plain torch version, fp32, on (9,5,7) at p = 2, 3, 4, on the ragged
+   (13,11,17) at p = 1, 5, 8 and on the 104³ p=4 headline lattice, constant
+   and DG-0 coefficients, with CUDA-event timings and the share of the
+   bound at the headline;
+3. K2 (fused RK stage, tiled) against its plain version, a non-final and a
+   final stage, at (9,5,7) p=4, on unit cells at (9,5,7) and the ragged
+   (13,11,17) p=4, and at the headline;
 4. the fp32 plane-wave gate through the model's main path (rel-L2 < 1e-3);
 5. the headline run — ``bench.py``'s problem (104³ box, p=4, RK4, fp32,
    72.5M DOF, 101 steps) through ``LinearSpectralExplicit.rk`` and its
@@ -165,6 +168,22 @@ def floor_ms(read: int, written: int, flops: float) -> dict:
     t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def share_text(bound: dict, ms: float) -> str:
+    """The bound of a timed call and its share of the call's time."""
+    return (f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), bound/ms "
+            f"{bound['bound_ms'] / ms:.3f}")
+
+
+def plan_line(gdims, p: int, nf: int, nr=None) -> str:
+    """The fp32 tile plan of the tiled K1 (nr = nf) or K2 kernels on a
+    lattice."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.stiffness import tile_plan
+
+    return str(tile_plan(gdims, p, nf, torch.float32, nr=nr))
 
 
 # ------------------------------------------------------------ launch counts
@@ -337,14 +356,17 @@ def phase_k1(device, card, grids, headline) -> dict:
             if (grid, p) == headline and name == "const":
                 out = {"max_abs_err": err, "rel_err": rel}
         if (grid, p) == headline:
+            say(f"[2] K1 headline tile plan {plan_line(lat.gdims, p, 1)}")
             for name, F in coeffs.items():
                 ms = cuda_median_ms(lambda: stiffness_apply([xs[0]], [F], p))
                 pms = cuda_median_ms(lambda: stiffness_plain([xs[0]], [F], p))
-                say(f"[2] K1 headline {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
-                    f"(median of 10, CUDA events; {card})")
+                bound = floor_ms(nbytes(xs[0], F), nbytes(xs[0]),
+                                 stencil_flops(lat.gdims, p, 1, (0, 1, 2)))
+                say(f"[2] K1 headline {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+                    f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), bound/ms "
+                    f"{bound['bound_ms'] / ms:.3f} (median of 10, CUDA events; {card})")
                 if name == "const":
-                    out.update(ms=ms, plain_ms=pms, **floor_ms(
-                        nbytes(xs[0], F), nbytes(xs[0]), stencil_flops(lat.gdims, p, 1, (0, 1, 2))))
+                    out.update(ms=ms, plain_ms=pms, **bound)
         del xs
         torch.cuda.synchronize()
     return out
@@ -419,30 +441,41 @@ def phase_k2(device, card, grids, headline) -> dict:
 
     from fenicsxfus_tpu_torch.ops.stage import stage_apply, stage_plain
 
+    from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
+
     rng = np.random.default_rng(1)
     gen = torch.Generator(device=device).manual_seed(1)
     out = {}
-    for grid, p in grids:
+    # unit cells and an O(1) coefficient: the stiffness term as large as
+    # the facet and mass terms, so a stencil fault cannot hide behind them
+    unit = [((9, 5, 7), 4, True), ((13, 11, 17), 4, True)]
+    for grid, p, unit_cells in [(g, q, False) for g, q in grids] + unit:
+        if unit_cells:
+            lat, scale = LatticeStiffness(grid, p, (1.0, 1.0, 1.0), torch.float32), 1.0
+        else:
+            lat, scale = _lattice(grid, p, torch.float32), 1.0 / 1000.0
         for final in (False, True):
-            args = _stage_inputs("linear", _lattice(grid, p, torch.float32), device, gen, rng,
-                                 final, scale=1.0 / 1000.0)
+            args = _stage_inputs("linear", lat, device, gen, rng, final, scale=scale)
             got = stage_apply(**args)
             ref = stage_plain(**args)
             torch.cuda.synchronize()
             pairs = list(zip(got, ref)) if final else [(got, ref)]
             worst = max(rel_err(a, b) for a, b in pairs)
             kind = "final" if final else "non-final"
-            say(f"[3] K2 grid={grid} p={p} {kind}: max|d|/max|ref| = {worst[0]:.3e}")
+            cells = ", unit cells" if unit_cells else ""
+            say(f"[3] K2 grid={grid} p={p}{cells} {kind}: max|d|/max|ref| = {worst[0]:.3e}")
             if not worst[0] <= TOL:
                 raise AssertionError(f"K2 disagrees with its plain version: {worst[0]:.3e} > {TOL}")
-            if (grid, p) == headline:
+            if (grid, p) == headline and not unit_cells:
                 ms = cuda_median_ms(lambda: stage_apply(**args))
                 pms = cuda_median_ms(lambda: stage_plain(**args))
-                say(f"[3] K2 headline {kind}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
-                    f"(median of 10, CUDA events; {card})")
+                bound = stage_floor(args, "K2")
+                say(f"[3] K2 headline {kind}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                    f"{share_text(bound, ms)} (median of 10, CUDA events; {card}); tile plan "
+                    f"{plan_line(lat.gdims, p, 1, 3)}")
                 if not final:
                     out = {"max_abs_err": worst[1], "rel_err": worst[0], "ms": ms, "plain_ms": pms,
-                           **stage_floor(args, "K2")}
+                           **bound}
             del args, got, ref
             torch.cuda.synchronize()
     return out
@@ -583,11 +616,13 @@ def phase_kinds(device, card) -> dict:
                 if grid == HITU_GRID:
                     ms = cuda_median_ms(lambda: stage_apply(**args))
                     pms = cuda_median_ms(lambda: stage_plain(**args))
+                    bound = stage_floor(args, "K2")
                     say(f"[6] K2 {kind} HITU lattice {stage}: kernel {ms:.3f} ms, plain "
-                        f"{pms:.3f} ms (median of 10, CUDA events; {card})")
+                        f"{pms:.3f} ms, {share_text(bound, ms)} (median of 10, CUDA events; "
+                        f"{card}); tile plan {plan_line(lat.gdims, 4, 2, 4)}")
                     if not final:
                         out[kind] = {"max_abs_err": worst[1], "rel_err": worst[0],
-                                     "ms": ms, "plain_ms": pms, **stage_floor(args, "K2")}
+                                     "ms": ms, "plain_ms": pms, **bound}
                 del args, got, ref
                 torch.cuda.synchronize()
     return out
@@ -1066,7 +1101,7 @@ def main() -> int:
     card = phase_versions()
     phase_build()
     headline = ((HEADLINE_NX,) * 3, 4)
-    small = [((9, 5, 7), p) for p in (2, 3, 4)]
+    small = [((9, 5, 7), p) for p in (2, 3, 4)] + [((13, 11, 17), p) for p in (1, 5, 8)]
     k1 = phase_k1(device, card, small + [headline], headline)
     k2 = phase_k2(device, card, [((9, 5, 7), 4), headline], headline)
     phase_planewave(device)

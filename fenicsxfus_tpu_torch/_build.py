@@ -108,13 +108,15 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use) with its C signatures."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    lib.fus_stiffness_apply.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _LLP, _I, _DP, _P, _I]
+    # K1 and K2 take the tile plan (ops/stiffness.py::tile_plan) as 8 ints
+    lib.fus_stiffness_apply.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _LLP, _I, _DP, _INTP,
+                                        _P, _I]
     lib.fus_stiffness_axis0.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _LLP, _I, _DP, _P, _I]
     lib.fus_stiffness_axes12.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _P, _LLP, _I, _DP, _P,
                                          _I]
-    lib.fus_stage.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _I]
+    lib.fus_stage.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _INTP, _P, _I]
     lib.fus_stage_a.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _P, _I]
-    lib.fus_stage_b.argtypes = lib.fus_stage.argtypes
+    lib.fus_stage_b.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _I]
     lib.fus_step_wave.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _P, _I,
                                   _P, _I]
     for name in ("fus_stiffness_apply", "fus_stiffness_axis0", "fus_stiffness_axes12",

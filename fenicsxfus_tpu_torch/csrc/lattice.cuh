@@ -1,5 +1,9 @@
-// Shared device code of the lattice kernels (K1 stiffness.cu, K2 stage.cu,
-// K4a/K4b stiffness_ab.cu, K5a/K5b stage_ab.cu).
+// Shared device code of the lattice kernels. The one-thread-per-node
+// stencil ``axis_at`` below serves K3 (step_wave.cu), K4a/K4b
+// (stiffness_ab.cu) and K5a/K5b (stage_ab.cu) only; K1 (stiffness.cu) and
+// K2 (stage.cu) run the shared-memory tile of tile.cuh, which builds on the
+// per-cell sums here (``cell_sum``, ``coeff_sum``, ``coeff_add``) so that
+// every kernel does the same arithmetic per node.
 //
 // Fields live on the 3D GLL lattice [G0, G1, G2], Ga = na*p + 1, row-major
 // with g2 fastest. The stiffness of one field x with packed coefficient F is
@@ -9,8 +13,9 @@
 //
 // K1 = D^T diag(w) D is the [N, N] local operator (N = p + 1). A node lies in
 // one cell along an axis, or on the interface of two (k = p of cell c-1 and
-// k = 0 of cell c). One thread computes one output node: at most 2N reads
-// per axis and field, no carry between blocks, no write conflicts.
+// k = 0 of cell c). In ``axis_at`` one thread computes one output node: at
+// most 2N reads per axis and field, no carry between blocks, no write
+// conflicts.
 //
 // F_a has the lattice shape with axis a replaced by its cell count (DG-0
 // coefficient) or 1 (constant coefficient: cell stride 0).
@@ -82,46 +87,78 @@ struct AxisCoeff {
   long long fbase, fcell;
 };
 
-// One axis, NF fields at once: sum over the (one or two) cells holding
-// coordinate g and over the fields f of
-//   F_f[fbase_f + c*fcell_f] * sum_j K1[k][j] * src(first_node_of_cell + j*stride).v[f].
-// The stencil reads each neighbour once for all fields.
-template <typename T, int NF, typename Src>
-__device__ __forceinline__ T axis_term(const Src& src, long long node, long long stride,
-                                       int g, int n, int p, const K1Mat<T>& K,
-                                       const AxisCoeff<T> (&cf)[NF]) {
-  const int N = p + 1;
-  int c = g / p;
-  if (c >= n) c = n - 1;  // the last node g = n*p is local node p of cell n-1
-  const int k = g - c * p;
-  long long base = node - (long long)k * stride;
-  T s[NF];
+// s[f] = sum_j K1[k][j] * src(base + j*stride).v[f] for the NF fields, summed
+// in j order; ``Kw`` holds K1 row-major (N = p + 1 columns). I is the index
+// type of ``src``: a lattice node (long long) or a shared-memory slot (int).
+template <typename T, int NF, typename Src, typename I>
+__device__ __forceinline__ void cell_sum(const Src& src, I base, I stride, int k, int N,
+                                         const T* Kw, T (&s)[NF]) {
 #pragma unroll
   for (int f = 0; f < NF; ++f) s[f] = 0;
   for (int j = 0; j < N; ++j) {
     const Vals<T, NF> x = src(base + j * stride);
-    const T w = K.w[k * N + j];
+    const T w = Kw[k * N + j];
 #pragma unroll
     for (int f = 0; f < NF; ++f) s[f] += w * x.v[f];
   }
+}
+
+// sum_f F_f[fbase_f + c*fcell_f] * s[f], in f order.
+template <typename T, int NF>
+__device__ __forceinline__ T coeff_sum(const AxisCoeff<T> (&cf)[NF], int c, const T (&s)[NF]) {
   T acc = __ldg(cf[0].F + cf[0].fbase + c * cf[0].fcell) * s[0];
 #pragma unroll
   for (int f = 1; f < NF; ++f) acc += __ldg(cf[f].F + cf[f].fbase + c * cf[f].fcell) * s[f];
+  return acc;
+}
+
+// acc + F_f[fbase_f + c*fcell_f] * s[f], added field by field: the interface
+// node's second cell.
+template <typename T, int NF>
+__device__ __forceinline__ T coeff_add(T acc, const AxisCoeff<T> (&cf)[NF], int c,
+                                       const T (&s)[NF]) {
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc += __ldg(cf[f].F + cf[f].fbase + c * cf[f].fcell) * s[f];
+  return acc;
+}
+
+// One axis, NF fields at once: sum over the (one or two) cells holding
+// coordinate g and over the fields f of
+//   F_f[fbase_f + c*fcell_f] * sum_j K1[k][j] * src(first_node_of_cell + j*stride).v[f].
+// The stencil reads each neighbour once for all fields.
+template <typename T, int NF, typename Src, typename I>
+__device__ __forceinline__ T axis_term(const Src& src, I node, I stride, int g, int n, int p,
+                                       const T* Kw, const AxisCoeff<T> (&cf)[NF]) {
+  const int N = p + 1;
+  int c = g / p;
+  if (c >= n) c = n - 1;  // the last node g = n*p is local node p of cell n-1
+  const int k = g - c * p;
+  T s[NF];
+  cell_sum<T, NF>(src, node - (I)k * stride, stride, k, N, Kw, s);
+  T acc = coeff_sum<T, NF>(cf, c, s);
   if (k == 0 && c > 0) {  // interface node: also local node p of cell c-1
-    base = node - (long long)p * stride;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) s[f] = 0;
-    for (int j = 0; j < N; ++j) {
-      const Vals<T, NF> x = src(base + j * stride);
-      const T w = K.w[p * N + j];
-#pragma unroll
-      for (int f = 0; f < NF; ++f) s[f] += w * x.v[f];
-    }
-#pragma unroll
-    for (int f = 0; f < NF; ++f)
-      acc += __ldg(cf[f].F + cf[f].fbase + (c - 1) * cf[f].fcell) * s[f];
+    cell_sum<T, NF>(src, node - (I)p * stride, stride, p, N, Kw, s);
+    acc = coeff_add<T, NF>(acc, cf, c - 1, s);
   }
   return acc;
+}
+
+// Where the axis-A coefficients F_A of the NF fields sit for the node
+// (g0, g1, g2).
+template <int A, typename T, int NF>
+__device__ __forceinline__ void axis_coeffs(const Coeff<T> (&cf)[NF], const Lattice& L, int g0,
+                                            int g1, int g2, AxisCoeff<T> (&a)[NF]) {
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    if constexpr (A == 0)  // F0 [e0, G1, G2]
+      a[f] = {cf[f].F[0], (long long)g1 * L.G2 + g2, cf[f].ext[0] > 1 ? L.G1 * L.G2 : 0};
+    else if constexpr (A == 1)  // F1 [G0, e1, G2]
+      a[f] = {cf[f].F[1], (long long)g0 * cf[f].ext[1] * L.G2 + g2,
+              cf[f].ext[1] > 1 ? L.G2 : 0};
+    else  // F2 [G0, G1, e2]
+      a[f] = {cf[f].F[2], ((long long)g0 * L.G1 + g1) * cf[f].ext[2],
+              cf[f].ext[2] > 1 ? 1LL : 0LL};
+  }
 }
 
 // The axis-A term of sum_f K_{cf[f]}(x_f) at node (g0, g1, g2).
@@ -131,25 +168,13 @@ __device__ __forceinline__ T axis_at(const Src& src, const Coeff<T> (&cf)[NF],
                                      const Lattice& L, const K1Mat<T>& K, long long node,
                                      int g0, int g1, int g2) {
   AxisCoeff<T> a[NF];
-  if constexpr (A == 0) {  // F0 [e0, G1, G2]
-    const long long P12 = L.G1 * L.G2;
-#pragma unroll
-    for (int f = 0; f < NF; ++f)
-      a[f] = {cf[f].F[0], (long long)g1 * L.G2 + g2, cf[f].ext[0] > 1 ? P12 : 0};
-    return axis_term<T, NF>(src, node, P12, g0, L.n0, L.p, K, a);
-  } else if constexpr (A == 1) {  // F1 [G0, e1, G2]
-#pragma unroll
-    for (int f = 0; f < NF; ++f)
-      a[f] = {cf[f].F[1], (long long)g0 * cf[f].ext[1] * L.G2 + g2,
-              cf[f].ext[1] > 1 ? L.G2 : 0};
-    return axis_term<T, NF>(src, node, L.G2, g1, L.n1, L.p, K, a);
-  } else {  // F2 [G0, G1, e2]
-#pragma unroll
-    for (int f = 0; f < NF; ++f)
-      a[f] = {cf[f].F[2], ((long long)g0 * L.G1 + g1) * cf[f].ext[2],
-              cf[f].ext[2] > 1 ? 1LL : 0LL};
-    return axis_term<T, NF>(src, node, 1, g2, L.n2, L.p, K, a);
-  }
+  axis_coeffs<A>(cf, L, g0, g1, g2, a);
+  if constexpr (A == 0)
+    return axis_term<T, NF>(src, node, L.G1 * L.G2, g0, L.n0, L.p, K.w, a);
+  else if constexpr (A == 1)
+    return axis_term<T, NF>(src, node, L.G2, g1, L.n1, L.p, K.w, a);
+  else
+    return axis_term<T, NF>(src, node, 1LL, g2, L.n2, L.p, K.w, a);
 }
 
 // y + the axis-1 and axis-2 terms at a node: the second kernel of the
@@ -164,7 +189,8 @@ __device__ __forceinline__ T axes12_at(const Src& src, const Coeff<T> (&cf)[NF],
 }
 
 // Stiffness sum_f K_{cf[f]}(x_f) at a node: the three axis terms, summed in
-// axis order (K1, K2), so the split K4a -> K4b adds in the same order.
+// axis order (K3; the tiles of K1 and K2 add in the same order), so the
+// split K4a -> K4b adds in the same order.
 template <typename T, int NF, typename Src>
 __device__ __forceinline__ T stiffness_at(const Src& src, const Coeff<T> (&cf)[NF],
                                           const Lattice& L, const K1Mat<T>& K,
@@ -181,6 +207,16 @@ struct FieldLoad {
     Vals<T, NF> r;
 #pragma unroll
     for (int f = 0; f < NF; ++f) r.v[f] = __ldg(x[f] + i);
+    return r;
+  }
+  // raw() and form_raw() as StageFields's (stage.cuh), for the tile: the
+  // fields are their own raw operands
+  static constexpr int NR = NF;
+  __device__ __forceinline__ const T* raw(int r) const { return x[r]; }
+  __device__ __forceinline__ Vals<T, NF> form_raw(const T* q, int RE) const {
+    Vals<T, NF> r;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) r.v[f] = q[f * RE];
     return r;
   }
 };

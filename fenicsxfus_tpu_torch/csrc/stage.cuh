@@ -2,9 +2,10 @@
 // launch per stage), K5a/K5b (stage_ab.cu, the stage split at the
 // axis-0 / axes-1,2 boundary) and K3 (step_wave.cu, the four stages of an
 // RK4 step in one launch). The kinds, the argument struct and its
-// unpacking from the C entries' operand slots, the stage fields formed at
-// each stencil read, the packed facet terms, the kind's epilogue and the
-// final stage's step update live here once.
+// unpacking from the C entries' operand slots, the stage fields (formed
+// once per loaded node by K2's tile, at each stencil read by K3 and K5),
+// the packed facet terms, the kind's epilogue and the final stage's step
+// update live here once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -106,6 +107,22 @@ struct StageFields {
     if constexpr (NF > 1) r.v[1] = kvp != nullptr ? v + alpha * ld(kvp, i) : v;
     return r;
   }
+  // For the tile (tile.cuh), which copies the operands into shared memory
+  // first: the NR raw operand arrays u0, v0, kvpp and (two fields) kvp, and
+  // the fields formed from a node's copies q[r * RE], as operator() forms them.
+  static constexpr int NR = NF > 1 ? 4 : 3;
+  __device__ __forceinline__ const T* raw(int r) const {
+    return r == 0 ? u0 : r == 1 ? v0 : r == 2 ? kvpp : kvp;
+  }
+  __device__ __forceinline__ Vals<T, NF> form_raw(const T* q, int RE) const {
+    Vals<T, NF> r;
+    const T v = q[RE];
+    T un = q[0] + alpha * v;
+    if (kvpp != nullptr) un += beta * q[2 * RE];
+    r.v[0] = un;
+    if constexpr (NF > 1) r.v[1] = kvp != nullptr ? v + alpha * q[3 * RE] : v;
+    return r;
+  }
 };
 
 template <typename T, int KIND, typename Ld = ReadOnlyLoad>
@@ -130,59 +147,88 @@ __device__ __forceinline__ T facet_at(const PackedFacet<T>& pf, const Lattice& L
   return f;
 }
 
-// The rest of a stage at one node once its assembled stiffness ``acc`` is
-// known: the packed facet terms sum_j s_j*F_j - abc*vn (box-face nodes
-// only), the kind's epilogue
+// vn = v0 + alpha*kvp (v0 without kvp) at a node, the slope read through ld.
+template <typename T, typename Ld>
+__device__ __forceinline__ T stage_vn(const StageArgs<T>& a, long long node, const Ld& ld) {
+  const T v0 = ld(a.v0, node);
+  return a.kvp != nullptr ? v0 + a.alpha * ld(a.kvp, node) : v0;
+}
+
+// The rest of a stage at one node once its assembled stiffness ``acc`` and
+// its stage fields are known: un, and ``vn()`` (called where vn is needed:
+// on box-face nodes and by the nonlinear kinds); ``dv(i)`` is dense operand
+// i at the node (inv_m, or m0 and d2; not read with SEP). The packed facet terms
+// sum_j s_j*F_j - abc*vn (box-face nodes only), the kind's epilogue
 //   linear, lossy:       kv = (-acc + corr) * inv_m
 //   westervelt, focused: kv = (d2*vn^2 - acc + corr) / (m0 - d2*un)
 // and the store of kv, or on the final stage of the step update u1, v1.
 // SEP (K3, linear and lossy only): inv_m is separable and arrives as
 // dense[0] = a [G0] and dense[1] = P [G1, G2], inv_m[g] = a[g0] * P[g1, g2].
-// The slopes are read through Ld.
-template <typename T, int KIND, bool SEP = false, typename Ld = PlainLoad>
-__device__ __forceinline__ void stage_finish(const StageArgs<T>& a, const Lattice& L,
-                                             long long node, int g0, int g1, int g2, T acc) {
+// The separable inv_m, u0, v0 and the slopes are read through Ld.
+template <typename T, int KIND, bool SEP = false, typename Ld = PlainLoad, typename VN,
+          typename DV>
+__device__ __forceinline__ void stage_epilogue(const StageArgs<T>& a, const Lattice& L,
+                                               long long node, int g0, int g1, int g2, T acc,
+                                               T un, const VN& vn, const DV& dv) {
   using Tr = KindTraits<KIND>;
   static_assert(!(SEP && Tr::NONLINEAR), "a separable inv_m is for linear and lossy only");
   const Ld ld{};
-  const T v0 = a.v0[node];
-  const T kvp = a.kvp != nullptr ? ld(a.kvp, node) : (T)0;
-  const T vn = a.kvp != nullptr ? v0 + a.alpha * kvp : v0;
   T corr = 0;
   if (g0 == 0 || g0 == L.G0 - 1 || g1 == 0 || g1 == L.G1 - 1 || g2 == 0 ||
       g2 == L.G2 - 1) {
 #pragma unroll
     for (int j = 0; j < Tr::NFACET - 1; ++j) corr += a.src[j] * facet_at(a.facet[j], L, g0, g1, g2);
-    corr -= facet_at(a.facet[Tr::NFACET - 1], L, g0, g1, g2) * vn;
+    corr -= facet_at(a.facet[Tr::NFACET - 1], L, g0, g1, g2) * vn();
   }
   T kv;
   if constexpr (Tr::NONLINEAR) {
-    T un = a.u0[node] + a.alpha * v0;
-    if (a.kvpp != nullptr) un += a.beta * ld(a.kvpp, node);
-    const T d2 = a.dense[1][node];
-    kv = (d2 * (vn * vn) - acc + corr) / (a.dense[0][node] - d2 * un);
+    const T v = vn();
+    const T d2 = dv(1);
+    kv = (d2 * (v * v) - acc + corr) / (dv(0) - d2 * un);
   } else if constexpr (SEP) {
-    kv = (-acc + corr) * (a.dense[0][g0] * a.dense[1][(long long)g1 * L.G2 + g2]);
+    kv = (-acc + corr) *
+         (ld(a.dense[0], (long long)g0) * ld(a.dense[1], (long long)g1 * L.G2 + g2));
   } else {
-    kv = (-acc + corr) * a.dense[0][node];
+    kv = (-acc + corr) * dv(0);
   }
   if (!a.final_stage) {
     a.kv_out[node] = kv;
     return;
   }
   // slopes in stage order: [kv_{i-3}], [kv_{i-2}], [kv_{i-1}], kv_i
+  const T v0 = ld(a.v0, node);
   T kvs[4];
   int ns = 0;
   if (a.prev != nullptr) kvs[ns++] = ld(a.prev, node);
   if (a.kvpp != nullptr) kvs[ns++] = ld(a.kvpp, node);
-  if (a.kvp != nullptr) kvs[ns++] = kvp;
+  if (a.kvp != nullptr) kvs[ns++] = ld(a.kvp, node);
   kvs[ns++] = kv;
-  T u1 = a.u0[node] + a.sb * v0;
+  T u1 = ld(a.u0, node) + a.sb * v0;
   for (int j = 0; j < ns - 1; ++j) u1 += a.cu[j] * kvs[j];
   T v1 = v0;
   for (int i = 0; i < ns; ++i) v1 += a.db[i] * kvs[i];
   a.u_out[node] = u1;
   a.v_out[node] = v1;
+}
+
+// The rest of a stage at one node once its assembled stiffness ``acc`` is
+// known (K3, K5b): the stage fields un and vn formed at the node, then
+// stage_epilogue. The slopes and (in stage_epilogue) the dense operands are
+// read through Ld.
+template <typename T, int KIND, bool SEP = false, typename Ld = PlainLoad>
+__device__ __forceinline__ void stage_finish(const StageArgs<T>& a, const Lattice& L,
+                                             long long node, int g0, int g1, int g2, T acc) {
+  const Ld ld{};
+  const T v0 = a.v0[node];
+  const T kvp = a.kvp != nullptr ? ld(a.kvp, node) : (T)0;
+  const T vn = a.kvp != nullptr ? v0 + a.alpha * kvp : v0;
+  T un = 0;
+  if constexpr (KindTraits<KIND>::NONLINEAR) {
+    un = a.u0[node] + a.alpha * v0;
+    if (a.kvpp != nullptr) un += a.beta * ld(a.kvpp, node);
+  }
+  stage_epilogue<T, KIND, SEP, Ld>(a, L, node, g0, g1, g2, acc, un, [&] { return vn; },
+                                   [&](int i) { return ld(a.dense[i], node); });
 }
 
 // ------------------------------------------------------------------- host

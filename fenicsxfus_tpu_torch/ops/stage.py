@@ -23,7 +23,8 @@ and travel packed (``pack_facet_vector``): ``xp`` [2, G1, G2], ``ye``
 [G0, 2, G2], ``ze`` [G0, G1, 2]. A vector with interior support cannot be
 packed, and the model then takes the unfused step.
 
-``stage_apply`` is the wrapper: CUDA tensors launch ``csrc/stage.cu``; CPU
+``stage_apply`` is the wrapper: CUDA tensors launch ``csrc/stage.cu`` (the
+tiled stencil of ``csrc/tile.cuh``, shaped by ``stiffness.tile_plan``); CPU
 tensors run ``stage_plain``.
 """
 
@@ -43,8 +44,10 @@ from .stiffness import (
     check_launch,
     lattice_grid,
     launch_args,
+    plan_ints,
     pointer_array,
     stiffness_plain,
+    tile_plan,
 )
 
 # stiffness fields per kind: un (coefficient 0) and vn (coefficient 1)
@@ -67,6 +70,9 @@ KIND_FACET = {
 }
 # kinds whose lumped mass depends on the stage field: m = m0 − d2∘un
 NONLINEAR_KINDS = ("westervelt", "focused")
+# raw operands the tiled K2 copies per node, by stiffness fields: u0, v0,
+# kvpp and (two fields) kvp (csrc/stage.cuh StageFields::NR)
+KIND_RAW = {1: 3, 2: 4}
 # kind codes of the C entry ``fus_stage`` (csrc/stage.cu, enum Kind)
 KIND_CODES = {"linear": 0, "lossy": 1, "westervelt": 2, "focused": 3}
 
@@ -281,9 +287,12 @@ def stage_apply(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final
         outs = (torch.empty_like(u0), None, None)
     ptrs, ext = stage_pointers(u0, v0, kvp, kvpp, prev, Fs, dense, facets, outs, exts)
     gd, K1, stream, dev = launch_args(u0, p)
+    nf = KIND_FIELDS[kind]
+    plan = tile_plan(u0.shape, p, nf, u0.dtype, nr=KIND_RAW[nf])
     rc = lib.fus_stage(
         KIND_CODES[kind], DTYPE_CODES[u0.dtype], ptrs, ext, gd, p, K1,
-        (ctypes.c_double * len(scal))(*scal), len(scal), int(final), stream, dev,
+        (ctypes.c_double * len(scal))(*scal), len(scal), int(final), plan_ints(plan), stream,
+        dev,
     )
     check_launch(lib, rc, "K2 stage")
     stage_apply.launches[kind] += 1

@@ -13,8 +13,9 @@ or 1 (constant coefficient). The JAX package stores F2 transposed,
 [G0, n2, G1]; ``convert.coeff_from_jax`` maps it.
 
 ``stiffness_apply`` is the wrapper: a CUDA tensor launches the hand-written
-kernel in ``csrc/stiffness.cu``; a CPU tensor runs ``stiffness_plain``, the
-same function in ordinary torch ops.
+kernel in ``csrc/stiffness.cu`` (the shared-memory tiled stencil of
+``csrc/tile.cuh``, shaped by ``tile_plan``); a CPU tensor runs
+``stiffness_plain``, the same function in ordinary torch ops.
 
 K4a/K4b: the same operator split at the axis-0 / axes-1,2 boundary into two
 kernels (``csrc/stiffness_ab.cu``), the port of the JAX package's two-kernel
@@ -112,6 +113,136 @@ def lattice_grid(gdims, p: int) -> tuple[int, int, int]:
             raise ValueError(f"lattice extent {G} is not n·{p} + 1")
         grid.append((G - 1) // p)
     return tuple(grid)
+
+
+# ----------------------------------------------------------------- tile plan
+
+# K1 and K2 run the tiled stencil of csrc/tile.cuh: a block owns a tile of
+# (g1, g2) columns, whole cells, one thread per column, and marches along g0
+# over a slab of cells. These are the starting sizes, which the plan cuts to
+# the lattice, to the shared-memory target and to the card's SM count.
+TILE_NODES = (8, 32)  # owned nodes of a tile along g1, g2 at most (tile.cuh kMainT1/T2)
+SLAB_CELLS = 8  # cells of a slab along g0
+SMEM_TARGET = 72 * 1024  # halve the tile until its shared memory fits
+SMEM_MAX = 232_448  # dynamic shared memory a block may have on the H100 (227 KB)
+MIN_BLOCKS = 132  # the H100's SMs: below, the plan cuts the slab, then the tile
+MAX_THREADS = 512  # threads of a block (csrc/tile.cuh kTileMaxThreads)
+LOAD_SLOTS = 2  # nodes of a shared plane one thread loads (csrc/tile.cuh kSlots)
+GRID_MAX = 65_535  # blocks along the grid's y and z
+ITEMSIZE = {torch.float32: 4, torch.float64: 8}
+
+
+def tile_smem_bytes(t1: int, t2: int, p: int, nf: int, nr: int, itemsize: int) -> int:
+    """Dynamic shared memory of a t1 × t2 tile (csrc/tile.cuh): a ring of the
+    N = p + 1 planes of a cell, each of nf fields and nr raw operands
+    spanning t + p + 1 nodes per axis, and K1."""
+    N = p + 1
+    return (N * (nf + nr) * (t1 + p + 1) * (t2 + p + 1) + N * N) * itemsize
+
+
+def tile_plan(gdims, p: int, nf: int, dtype, nr=None, tile=None, slab=None) -> dict:
+    """The launch shape of the tiled K1/K2 kernels on a [G0, G1, G2] lattice
+    of degree p with ``nf`` stencil fields of ``dtype``, formed from ``nr``
+    raw operands per node (K1: nr = nf, the default; K2: u0, v0, kvpp and,
+    for two fields, kvp).
+
+    Returns a dict: ``tile`` (t1, t2), the owned nodes of a tile along g1,
+    g2 (whole cells; the last tile of an axis is cut at the lattice's end);
+    ``slab``, the cells of a block's march along g0 (the last slab also owns
+    plane G0 - 1); ``halo`` (p, 1), the nodes read below and above a tile or
+    slab; ``threads`` of a block (one per column, and enough to load a plane
+    with ``LOAD_SLOTS`` nodes each); ``smem``, its dynamic shared-memory
+    bytes; ``grid`` (tiles along g2, tiles along g1, slabs). ``tile`` (in
+    cells) and ``slab`` override the module's sizes and are cut to the
+    lattice only. Otherwise the tile is cut to the lattice and halved until
+    it fits the shared-memory target, then the slab and the tile are halved
+    while the grid has fewer blocks than the card has SMs. Raises ValueError
+    for a plan a block cannot run."""
+    return dict(_tile_plan(tuple(int(g) for g in gdims), int(p), int(nf), int(nr or nf),
+                           ITEMSIZE[dtype], None if tile is None else tuple(tile), slab,
+                           TILE_NODES, SLAB_CELLS, SMEM_TARGET, MIN_BLOCKS))
+
+
+def _grid(gdims, n0, t1, t2, S):
+    return (-(-gdims[2] // t2), -(-gdims[1] // t1), -(-n0 // S))
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_plan(gdims, p, nf, nr, itemsize, tile, slab, tile_nodes, slab_cells, target,
+               min_blocks):
+    n = lattice_grid(gdims, p)
+    c1 = min(max(1, tile_nodes[0] // p), n[1])
+    c2 = min(max(1, tile_nodes[1] // p), n[2])
+    S = min(slab_cells, n[0])
+    # halve along g1 first: rows along g2 stay long, for coalesced loads
+    while tile_smem_bytes(c1 * p, c2 * p, p, nf, nr, itemsize) > target and c1 * c2 > 1:
+        if c1 > 1:
+            c1 //= 2
+        else:
+            c2 //= 2
+    while np.prod(_grid(gdims, n[0], c1 * p, c2 * p, S)) < min_blocks and c1 * c2 * S > 1:
+        if S > 1:
+            S //= 2
+        elif c1 > 1:
+            c1 //= 2
+        else:
+            c2 //= 2
+    if tile is not None:
+        c1, c2 = min(int(tile[0]), n[1]), min(int(tile[1]), n[2])
+    if slab is not None:
+        S = min(int(slab), n[0])
+    if min(c1, c2, S) < 1:
+        raise ValueError(f"tile {(c1, c2)} cells and slab {S} must be at least one cell")
+    t1, t2 = c1 * p, c2 * p
+    smem = tile_smem_bytes(t1, t2, p, nf, nr, itemsize)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"a {t1} x {t2} tile at p={p} with {nf} fields of {itemsize} bytes needs {smem} B "
+            f"of shared memory; a block may have {SMEM_MAX} B"
+        )
+    plane = (t1 + p + 1) * (t2 + p + 1)
+    threads = 32 * -(-max(t1 * t2, -(-plane // LOAD_SLOTS)) // 32)
+    if threads > MAX_THREADS:
+        raise ValueError(f"a {t1} x {t2} tile at p={p} needs {threads} threads; a block may "
+                         f"have {MAX_THREADS}")
+    grid = _grid(gdims, n[0], t1, t2, S)
+    if max(grid[1:]) > GRID_MAX:
+        raise ValueError(f"grid {grid} exceeds {GRID_MAX} blocks along y or z")
+    return (("tile", (t1, t2)), ("slab", S), ("halo", (p, 1)), ("threads", threads),
+            ("smem", smem), ("grid", grid))
+
+
+def plan_ints(plan: dict) -> ctypes.Array:
+    """The plan as the 8 ints of the C entries (csrc/tile.cuh::read_plan):
+    t1, t2, slab, threads, smem bytes, grid x, y, z."""
+    return (ctypes.c_int * 8)(*plan["tile"], plan["slab"], plan["threads"], plan["smem"],
+                              *plan["grid"])
+
+
+def tile_ranges(plan: dict, gdims, p: int) -> dict:
+    """Per axis, the ranges of each block index that ``tile_stencil``
+    (csrc/tile.cuh) derives from the plan, as [n, 3] int arrays of
+    (owned begin, owned end, origin) and [n, 2] arrays of loaded (begin,
+    end): ``"g2"``/``"g1"`` per tile, the origin being the lattice
+    coordinate of a shared plane's first entry; ``"g0"`` per slab, planes,
+    the origin unused (0)."""
+    G0, G1, G2 = gdims
+    n0 = (G0 - 1) // p
+    (t1, t2), S = plan["tile"], plan["slab"]
+    gx, gy, gz = plan["grid"]
+    out = {}
+    for name, t, nb, G in (("g2", t2, gx, G2), ("g1", t1, gy, G1)):
+        A = np.arange(nb) * t
+        E = np.minimum(A + t, G)
+        O = A - p
+        out[name] = np.stack([A, E, O], 1)
+        out[name + " loaded"] = np.stack([np.maximum(O, 0), np.minimum(E + 1, G)], 1)
+    c_begin = np.arange(gz) * S
+    c_end = np.minimum(c_begin + S, n0)
+    owned_end = np.where(c_end == n0, G0, c_end * p)
+    out["g0"] = np.stack([c_begin * p, owned_end, np.zeros_like(c_begin)], 1)
+    out["g0 loaded"] = np.stack([np.maximum(c_begin - 1, 0) * p, c_end * p + 1], 1)
+    return out
 
 
 # ------------------------------------------------------------- plain version
@@ -235,10 +366,11 @@ def _check_stiffness(xs, Fs, p: int, name: str):
     return exts
 
 
-def _launch(entry, name, xs, Fs, exts, p, outs):
+def _launch(entry, name, xs, Fs, exts, p, outs, plan=()):
     """Launch the C entry ``entry`` of a stiffness kernel on the current
     stream: fields, coefficients and extents, then the device pointers
-    ``outs``; raise if the launch failed."""
+    ``outs``, the lattice, and ``plan`` (K1's tile plan ints, if any); raise
+    if the launch failed."""
     from .._build import library
 
     lib = library()
@@ -248,7 +380,7 @@ def _launch(entry, name, xs, Fs, exts, p, outs):
     gd, K1, stream, dev = launch_args(xs[0], p)
     rc = getattr(lib, entry)(
         DTYPE_CODES[xs[0].dtype], len(xs), xp, Fp, ext,
-        *[ctypes.c_void_p(t.data_ptr()) for t in outs], gd, p, K1, stream, dev,
+        *[ctypes.c_void_p(t.data_ptr()) for t in outs], gd, p, K1, *plan, stream, dev,
     )
     check_launch(lib, rc, name)
 
@@ -262,8 +394,9 @@ def check_launch(lib, rc: int, name: str) -> None:
 def stiffness_apply(xs, Fs, p: int) -> torch.Tensor:
     """y = Σ_f K_{F_f}(x_f) for 1 or 2 lattice fields [G0, G1, G2].
 
-    CUDA tensors launch the K1 kernel (``csrc/stiffness.cu``) on the current
-    stream; CPU tensors run ``stiffness_plain``. Anything else raises. With
+    CUDA tensors launch the K1 kernel (``csrc/stiffness.cu``, shaped by
+    ``tile_plan``) on the current stream; CPU tensors run
+    ``stiffness_plain``. Anything else raises. With
     ``FUS_V3=0`` in the environment (read at every call, as the JAX package's
     ``LatticePallasStiffness.apply`` reads it) the two-kernel path runs
     instead: ``stiffness_axis0_apply`` (K4a), then ``stiffness_axes12_apply``
@@ -275,7 +408,8 @@ def stiffness_apply(xs, Fs, p: int) -> torch.Tensor:
     if xs[0].device.type == "cpu":
         return stiffness_plain(xs, Fs, p)
     y = torch.empty_like(xs[0])
-    _launch("fus_stiffness_apply", "K1 stiffness", xs, Fs, exts, p, [y])
+    plan = tile_plan(xs[0].shape, p, len(xs), xs[0].dtype)
+    _launch("fus_stiffness_apply", "K1 stiffness", xs, Fs, exts, p, [y], [plan_ints(plan)])
     stiffness_apply.launches += 1
     return y
 

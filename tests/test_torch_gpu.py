@@ -21,7 +21,7 @@ from fenicsxfus_tpu_torch import (
 )
 from fenicsxfus_tpu_torch.convert import state_from_numpy
 from fenicsxfus_tpu_torch.models.common import explicit_tables, make_scan_from_step
-from fenicsxfus_tpu_torch.ops import step_wave
+from fenicsxfus_tpu_torch.ops import stage, stiffness, step_wave
 from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
 from fenicsxfus_tpu_torch.ops.stage import (
     KIND_DENSE,
@@ -140,6 +140,80 @@ def test_k2_matches_plain(grid, kind, present, final, dtype, cuda):
         ref = stage_plain(*args)
         for a, b in (zip(got, ref) if final else [(got, ref)]):
             assert _rel(a, b) < TOLS[dtype]
+
+
+# the tiled K1/K2 (csrc/tile.cuh): a lattice no tile divides and a channel
+# one cell across, on unit cells with O(1) coefficients (the stiffness term
+# as large as the rest, so a stencil fault shows), under the default plan
+# and under the main path's tile and slab (the minimum block count set to 1)
+TILE_GRIDS = [(13, 11, 17), (41, 1, 1)]
+PLANS = ["default", "main-path tile"]
+
+
+def _use_plan(plan, monkeypatch):
+    if plan == "main-path tile":
+        monkeypatch.setattr(stiffness, "MIN_BLOCKS", 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("degree", range(1, 9))
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("grid", TILE_GRIDS)
+def test_tiled_k1_matches_plain(grid, plan, degree, dtype, cuda, monkeypatch):
+    _use_plan(plan, monkeypatch)
+    lat = LatticeStiffness(grid, degree, (1.0, 1.0, 1.0), dtype)
+    rng = np.random.default_rng(degree)
+    Fs = [pack_const(lat, 1.7, cuda),
+          pack_field(lat, rng.uniform(0.5, 2.0, int(np.prod(grid))), cuda)]
+    xs = [torch.as_tensor(rng.standard_normal(lat.gdims), dtype=dtype, device=cuda)
+          for _ in range(2)]
+    for x_in, F_in in (([xs[0]], Fs[:1]), ([xs[1]], Fs[1:]), (xs, Fs), (xs, Fs[::-1])):
+        before = stiffness_apply.launches
+        y = stiffness_apply(x_in, F_in, degree)
+        assert stiffness_apply.launches == before + 1
+        assert _rel(y, stiffness_plain(x_in, F_in, degree)) < TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("degree", range(1, 9))
+@pytest.mark.parametrize("kind", sorted(KIND_FIELDS))
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("grid", TILE_GRIDS)
+def test_tiled_k2_matches_plain(grid, plan, kind, degree, dtype, cuda, monkeypatch):
+    _use_plan(plan, monkeypatch)
+    lat = LatticeStiffness(grid, degree, (1.0, 1.0, 1.0), dtype)
+    rng = np.random.default_rng(degree + 10 * len(kind))
+    for (present, final), dg0 in ((STAGES[2], False), (STAGES[2], True),
+                                  (STAGES[6], False), (STAGES[6], True)):
+        args = _stage_args(kind, lat, rng, cuda, present, final, dg0)
+        before = stage_apply.launches[kind]
+        got = stage_apply(*args)
+        assert stage_apply.launches[kind] == before + 1
+        ref = stage_plain(*args)
+        for a, b in (zip(got, ref) if final else [(got, ref)]):
+            assert _rel(a, b) < TOLS[dtype]
+
+
+def test_refused_plan_raises(cuda, monkeypatch):
+    """A plan the card refuses (more shared memory than a block may have) or
+    that the C entry refuses (a grid that leaves nodes without an owner)
+    raises, counts no launch, and leaves the next launch right."""
+    lat = LatticeStiffness(GRID, 4, (1.0, 1.0, 1.0), torch.float32)
+    args = _stage_args("focused", lat, np.random.default_rng(5), cuda, (1, 1, 0), False, True)
+    x, F = args[1], args[6][0]
+    plan = stiffness.tile_plan
+    for bad in ({"smem": stiffness.SMEM_MAX + 8192}, {"grid": (1, 1, 1)}):
+        monkeypatch.setattr(stiffness, "tile_plan", lambda *a, **k: dict(plan(*a, **k), **bad))
+        monkeypatch.setattr(stage, "tile_plan", stiffness.tile_plan)
+        k1, k2 = stiffness_apply.launches, stage_apply.launches["focused"]
+        with pytest.raises(RuntimeError, match="launch failed"):
+            stiffness_apply([x], [F], 4)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            stage_apply(*args)
+        assert (stiffness_apply.launches, stage_apply.launches["focused"]) == (k1, k2)
+        monkeypatch.undo()
+        assert _rel(stiffness_apply([x], [F], 4), stiffness_plain([x], [F], 4)) < 1e-5
+        assert _rel(stage_apply(*args), stage_plain(*args)) < 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
