@@ -52,8 +52,9 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
 12. the whole-step wavefront, with ``FUS_STEP_WAVE=1`` set for the phase: K3
    (one launch per RK4 step) against its plain version for all four kinds
    at (9,5,7) (constant and DG-0), (41,1,1), (81,1,1), the HITU lattice
-   (timed for every kind, beside four K2 launches) and, for ``linear``, the
-   headline (timed), inv_m dense and separable for linear and lossy; the
+   (timed for every kind) and, for ``linear``, the headline (timed), inv_m
+   dense and separable for linear and lossy, and against four K2 launches
+   of the same step, bit for bit (every kernel rounds alike); the
    step at the HITU lattice on 1 block against the default grid, bit for
    bit; then HITU W-H101-WATER (one K3 launch per step, peak held against
    the JAX package's run and phase 7's), the headline (separable inv_m,
@@ -1034,6 +1035,8 @@ def phase_k3(device, card) -> dict:
                 if not worst[0] <= TOL:
                     raise AssertionError(
                         f"K3 {kind} disagrees with its plain version: {worst[0]:.3e} > {TOL}")
+                if not same:  # every kernel rounds the per-node arithmetic alike
+                    raise AssertionError(f"K3 {kind} differs from four K2 launches")
                 if grid in (HITU_GRID, headline):
                     ms = cuda_median_ms(lambda: step_wave_apply(**args))
                     pms = cuda_median_ms(lambda: step_wave_plain(**args))

@@ -2,7 +2,7 @@
 // stencil ``axis_at`` below serves K3 (step_wave.cu), K4a/K4b
 // (stiffness_ab.cu) and K5a/K5b (stage_ab.cu) only; K1 (stiffness.cu) and
 // K2 (stage.cu) run the shared-memory tile of tile.cuh, which builds on the
-// per-cell sums here (``cell_sum``, ``coeff_sum``, ``coeff_add``) so that
+// per-cell sums here (``cell_sum``, ``coeff_dot``, ``coeff_acc``) so that
 // every kernel does the same arithmetic per node.
 //
 // Fields live on the 3D GLL lattice [G0, G1, G2], Ga = na*p + 1, row-major
@@ -64,6 +64,21 @@ inline K1Mat<T> make_k1(const double* K1, int p) {
   return K;
 }
 
+// The roundings of the stencil sums, written out. nvcc contracts a*b + c
+// into an fma wherever it sees both in one expression after inlining, and
+// what it sees there depends on the kernel around the sum (an unrolled
+// cell, a branch at the interface); so every sum below says which products
+// it fuses (fma_rn) and which it rounds on their own (mul_rn, add_rn), and
+// the tile of K1/K2 and the axis_at of K3/K4/K5 round alike.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
 // Lattice coordinates of node index `node` (g2 fastest).
 __device__ __forceinline__ void node_coords(long long node, const Lattice& L,
                                             int& g0, int& g1, int& g2) {
@@ -99,27 +114,32 @@ __device__ __forceinline__ void cell_sum(const Src& src, I base, I stride, int k
     const Vals<T, NF> x = src(base + j * stride);
     const T w = Kw[k * N + j];
 #pragma unroll
-    for (int f = 0; f < NF; ++f) s[f] += w * x.v[f];
+    for (int f = 0; f < NF; ++f) s[f] = fma_rn(w, x.v[f], s[f]);
   }
 }
 
-// sum_f F_f[fbase_f + c*fcell_f] * s[f], in f order.
+// sum_f F[f] * s[f], in f order: a cell's term of one axis.
 template <typename T, int NF>
-__device__ __forceinline__ T coeff_sum(const AxisCoeff<T> (&cf)[NF], int c, const T (&s)[NF]) {
-  T acc = __ldg(cf[0].F + cf[0].fbase + c * cf[0].fcell) * s[0];
+__device__ __forceinline__ T coeff_dot(const T (&F)[NF], const T (&s)[NF]) {
+  T acc = mul_rn(F[0], s[0]);
 #pragma unroll
-  for (int f = 1; f < NF; ++f) acc += __ldg(cf[f].F + cf[f].fbase + c * cf[f].fcell) * s[f];
+  for (int f = 1; f < NF; ++f) acc = fma_rn(F[f], s[f], acc);
   return acc;
 }
 
-// acc + F_f[fbase_f + c*fcell_f] * s[f], added field by field: the interface
-// node's second cell.
+// acc + F[f] * s[f], added field by field: the interface node's second cell.
 template <typename T, int NF>
-__device__ __forceinline__ T coeff_add(T acc, const AxisCoeff<T> (&cf)[NF], int c,
-                                       const T (&s)[NF]) {
+__device__ __forceinline__ T coeff_acc(T acc, const T (&F)[NF], const T (&s)[NF]) {
 #pragma unroll
-  for (int f = 0; f < NF; ++f) acc += __ldg(cf[f].F + cf[f].fbase + c * cf[f].fcell) * s[f];
+  for (int f = 0; f < NF; ++f) acc = fma_rn(F[f], s[f], acc);
   return acc;
+}
+
+// The F_f[fbase_f + c*fcell_f] of the NF fields at cell c.
+template <typename T, int NF>
+__device__ __forceinline__ void cell_coeffs(const AxisCoeff<T> (&cf)[NF], int c, T (&F)[NF]) {
+#pragma unroll
+  for (int f = 0; f < NF; ++f) F[f] = __ldg(cf[f].F + cf[f].fbase + c * cf[f].fcell);
 }
 
 // One axis, NF fields at once: sum over the (one or two) cells holding
@@ -133,12 +153,14 @@ __device__ __forceinline__ T axis_term(const Src& src, I node, I stride, int g, 
   int c = g / p;
   if (c >= n) c = n - 1;  // the last node g = n*p is local node p of cell n-1
   const int k = g - c * p;
-  T s[NF];
+  T s[NF], F[NF];
   cell_sum<T, NF>(src, node - (I)k * stride, stride, k, N, Kw, s);
-  T acc = coeff_sum<T, NF>(cf, c, s);
+  cell_coeffs<T, NF>(cf, c, F);
+  T acc = coeff_dot<T, NF>(F, s);
   if (k == 0 && c > 0) {  // interface node: also local node p of cell c-1
     cell_sum<T, NF>(src, node - (I)p * stride, stride, p, N, Kw, s);
-    acc = coeff_add<T, NF>(acc, cf, c - 1, s);
+    cell_coeffs<T, NF>(cf, c - 1, F);
+    acc = coeff_acc<T, NF>(acc, F, s);
   }
   return acc;
 }
@@ -183,9 +205,8 @@ template <typename T, int NF, typename Src>
 __device__ __forceinline__ T axes12_at(const Src& src, const Coeff<T> (&cf)[NF],
                                        const Lattice& L, const K1Mat<T>& K, long long node,
                                        int g0, int g1, int g2, T y) {
-  y += axis_at<1>(src, cf, L, K, node, g0, g1, g2);
-  y += axis_at<2>(src, cf, L, K, node, g0, g1, g2);
-  return y;
+  y = add_rn(y, axis_at<1>(src, cf, L, K, node, g0, g1, g2));
+  return add_rn(y, axis_at<2>(src, cf, L, K, node, g0, g1, g2));
 }
 
 // Stiffness sum_f K_{cf[f]}(x_f) at a node: the three axis terms, summed in

@@ -91,37 +91,50 @@ struct PlainLoad {
   }
 };
 
+// The stage fields at one node, un = u0 + alpha*v0 [+ beta*kvpp] and
+// vn = v0 [+ alpha*kvp], each bracket present with its slope; ``kvpp()``
+// and ``kvp()`` read the slope and are called only then. Every kernel forms
+// them here (K2's tile from its shared copies, K3 and K5 at each stencil
+// read and at the node), with the fma written out, so they round alike.
+template <typename T, typename S>
+__device__ __forceinline__ T form_un(T u0, T v0, T alpha, T beta, bool has_kvpp,
+                                     const S& kvpp) {
+  const T un = fma_rn(alpha, v0, u0);
+  return has_kvpp ? fma_rn(beta, kvpp(), un) : un;
+}
+template <typename T, typename S>
+__device__ __forceinline__ T form_vn(T v0, T alpha, bool has_kvp, const S& kvp) {
+  return has_kvp ? fma_rn(alpha, kvp(), v0) : v0;
+}
+
 // (un, vn) formed at each read; NF = 1 reads un only. u0 and v0 are
 // read-only in every launch; the slopes are read through Ld.
 template <typename T, int NF, typename Ld = ReadOnlyLoad>
 struct StageFields {
   const T *u0, *v0, *kvp, *kvpp;
   T alpha, beta;
+  // the fields from a node's u0 and v0 and ``slope(0)`` = kvpp, ``slope(1)``
+  // = kvp there
+  template <typename S>
+  __device__ __forceinline__ Vals<T, NF> form(T u, T v, const S& slope) const {
+    Vals<T, NF> r;
+    r.v[0] = form_un(u, v, alpha, beta, kvpp != nullptr, [&] { return slope(0); });
+    if constexpr (NF > 1) r.v[1] = form_vn(v, alpha, kvp != nullptr, [&] { return slope(1); });
+    return r;
+  }
   __device__ __forceinline__ Vals<T, NF> operator()(long long i) const {
     const Ld ld{};
-    Vals<T, NF> r;
-    const T v = __ldg(v0 + i);
-    T un = __ldg(u0 + i) + alpha * v;
-    if (kvpp != nullptr) un += beta * ld(kvpp, i);
-    r.v[0] = un;
-    if constexpr (NF > 1) r.v[1] = kvp != nullptr ? v + alpha * ld(kvp, i) : v;
-    return r;
+    return form(__ldg(u0 + i), __ldg(v0 + i), [&](int s) { return ld(s ? kvp : kvpp, i); });
   }
   // For the tile (tile.cuh), which copies the operands into shared memory
   // first: the NR raw operand arrays u0, v0, kvpp and (two fields) kvp, and
-  // the fields formed from a node's copies q[r * RE], as operator() forms them.
+  // the fields formed from a node's copies q[r * RE].
   static constexpr int NR = NF > 1 ? 4 : 3;
   __device__ __forceinline__ const T* raw(int r) const {
     return r == 0 ? u0 : r == 1 ? v0 : r == 2 ? kvpp : kvp;
   }
   __device__ __forceinline__ Vals<T, NF> form_raw(const T* q, int RE) const {
-    Vals<T, NF> r;
-    const T v = q[RE];
-    T un = q[0] + alpha * v;
-    if (kvpp != nullptr) un += beta * q[2 * RE];
-    r.v[0] = un;
-    if constexpr (NF > 1) r.v[1] = kvp != nullptr ? v + alpha * q[3 * RE] : v;
-    return r;
+    return form(q[0], q[RE], [&](int s) { return q[(2 + s) * RE]; });
   }
 };
 
@@ -150,8 +163,7 @@ __device__ __forceinline__ T facet_at(const PackedFacet<T>& pf, const Lattice& L
 // vn = v0 + alpha*kvp (v0 without kvp) at a node, the slope read through ld.
 template <typename T, typename Ld>
 __device__ __forceinline__ T stage_vn(const StageArgs<T>& a, long long node, const Ld& ld) {
-  const T v0 = ld(a.v0, node);
-  return a.kvp != nullptr ? v0 + a.alpha * ld(a.kvp, node) : v0;
+  return form_vn(ld(a.v0, node), a.alpha, a.kvp != nullptr, [&] { return ld(a.kvp, node); });
 }
 
 // The rest of a stage at one node once its assembled stiffness ``acc`` and
@@ -161,7 +173,8 @@ __device__ __forceinline__ T stage_vn(const StageArgs<T>& a, long long node, con
 // sum_j s_j*F_j - abc*vn (box-face nodes only), the kind's epilogue
 //   linear, lossy:       kv = (-acc + corr) * inv_m
 //   westervelt, focused: kv = (d2*vn^2 - acc + corr) / (m0 - d2*un)
-// and the store of kv, or on the final stage of the step update u1, v1.
+// and the store of kv, or on the final stage of the step update u1, v1;
+// every rounding written out (lattice.cuh), so K2, K3 and K5b agree.
 // SEP (K3, linear and lossy only): inv_m is separable and arrives as
 // dense[0] = a [G0] and dense[1] = P [G1, G2], inv_m[g] = a[g0] * P[g1, g2].
 // The separable inv_m, u0, v0 and the slopes are read through Ld.
@@ -177,19 +190,20 @@ __device__ __forceinline__ void stage_epilogue(const StageArgs<T>& a, const Latt
   if (g0 == 0 || g0 == L.G0 - 1 || g1 == 0 || g1 == L.G1 - 1 || g2 == 0 ||
       g2 == L.G2 - 1) {
 #pragma unroll
-    for (int j = 0; j < Tr::NFACET - 1; ++j) corr += a.src[j] * facet_at(a.facet[j], L, g0, g1, g2);
-    corr -= facet_at(a.facet[Tr::NFACET - 1], L, g0, g1, g2) * vn();
+    for (int j = 0; j < Tr::NFACET - 1; ++j)
+      corr = fma_rn(a.src[j], facet_at(a.facet[j], L, g0, g1, g2), corr);
+    corr = fma_rn(-facet_at(a.facet[Tr::NFACET - 1], L, g0, g1, g2), vn(), corr);
   }
   T kv;
   if constexpr (Tr::NONLINEAR) {
     const T v = vn();
     const T d2 = dv(1);
-    kv = (d2 * (v * v) - acc + corr) / (dv(0) - d2 * un);
+    kv = add_rn(fma_rn(d2, mul_rn(v, v), -acc), corr) / fma_rn(-d2, un, dv(0));
   } else if constexpr (SEP) {
-    kv = (-acc + corr) *
-         (ld(a.dense[0], (long long)g0) * ld(a.dense[1], (long long)g1 * L.G2 + g2));
+    kv = mul_rn(add_rn(-acc, corr),
+                mul_rn(ld(a.dense[0], (long long)g0), ld(a.dense[1], (long long)g1 * L.G2 + g2)));
   } else {
-    kv = (-acc + corr) * dv(0);
+    kv = mul_rn(add_rn(-acc, corr), dv(0));
   }
   if (!a.final_stage) {
     a.kv_out[node] = kv;
@@ -203,10 +217,10 @@ __device__ __forceinline__ void stage_epilogue(const StageArgs<T>& a, const Latt
   if (a.kvpp != nullptr) kvs[ns++] = ld(a.kvpp, node);
   if (a.kvp != nullptr) kvs[ns++] = ld(a.kvp, node);
   kvs[ns++] = kv;
-  T u1 = ld(a.u0, node) + a.sb * v0;
-  for (int j = 0; j < ns - 1; ++j) u1 += a.cu[j] * kvs[j];
+  T u1 = fma_rn(a.sb, v0, ld(a.u0, node));
+  for (int j = 0; j < ns - 1; ++j) u1 = fma_rn(a.cu[j], kvs[j], u1);
   T v1 = v0;
-  for (int i = 0; i < ns; ++i) v1 += a.db[i] * kvs[i];
+  for (int i = 0; i < ns; ++i) v1 = fma_rn(a.db[i], kvs[i], v1);
   a.u_out[node] = u1;
   a.v_out[node] = v1;
 }
@@ -220,13 +234,11 @@ __device__ __forceinline__ void stage_finish(const StageArgs<T>& a, const Lattic
                                              long long node, int g0, int g1, int g2, T acc) {
   const Ld ld{};
   const T v0 = a.v0[node];
-  const T kvp = a.kvp != nullptr ? ld(a.kvp, node) : (T)0;
-  const T vn = a.kvp != nullptr ? v0 + a.alpha * kvp : v0;
+  const T vn = form_vn(v0, a.alpha, a.kvp != nullptr, [&] { return ld(a.kvp, node); });
   T un = 0;
-  if constexpr (KindTraits<KIND>::NONLINEAR) {
-    un = a.u0[node] + a.alpha * v0;
-    if (a.kvpp != nullptr) un += a.beta * ld(a.kvpp, node);
-  }
+  if constexpr (KindTraits<KIND>::NONLINEAR)
+    un = form_un(a.u0[node], v0, a.alpha, a.beta, a.kvpp != nullptr,
+                 [&] { return ld(a.kvpp, node); });
   stage_epilogue<T, KIND, SEP, Ld>(a, L, node, g0, g1, g2, acc, un, [&] { return vn; },
                                    [&](int i) { return ld(a.dense[i], node); });
 }

@@ -44,17 +44,17 @@
 //    read before the planes were formed). A second __syncthreads frees the
 //    ring for the next cell.
 //
-// The arithmetic per node is lattice.cuh's (cell_sum, coeff_sum, coeff_add):
-// axis 0, += axis 1, += axis 2; within an axis sum_j K1[k][j]*x_j in j
-// order, then F_c*s, then the interface cell's F_{c-1}*s'. MAIN fixes p = 4
-// and the tile (kMainT1 x kMainT2) at compile time, so that every loop over
-// a cell unrolls and every shared-memory offset is a constant; otherwise p
-// and the tile are read at run time, with the loops over a cell unrolled to
-// kMaxN with guards.
+// The arithmetic per node is lattice.cuh's (cell_sum, coeff_dot, coeff_acc,
+// add_rn; every rounding written out): axis 0, + axis 1, + axis 2; within an
+// axis sum_j K1[k][j]*x_j in j order, then F_c*s, then the interface cell's
+// F_{c-1}*s'. MAIN fixes p = 4 and the tile (kMainT1 x kMainT2) at compile
+// time, so that every loop over a cell unrolls and every shared-memory
+// offset is a constant; otherwise p and the tile are read at run time, with
+// the loops over a cell unrolled to kMaxN with guards.
 //
 // ops/stiffness.py::tile_plan chooses t1, t2, slab, the threads, the
-// dynamic shared-memory bytes and the grid; its tile_ranges mirrors the
-// ownership and halo arithmetic of tile_stencil for the CPU tests.
+// dynamic shared-memory bytes and the grid; tests/test_torch_tile_plan.py
+// replays the ownership and halo arithmetic of tile_stencil on the CPU.
 #pragma once
 
 #include <cuda_pipeline_primitives.h>
@@ -236,13 +236,10 @@ struct ColumnAxis {
     const int N = p + 1;
     T s[NF];
     cell_sum<T, NF>(plane, base, stride, k, N, Kw, s);
-    T acc = cf.c[0] * s[0];
-#pragma unroll
-    for (int f = 1; f < NF; ++f) acc += cf.c[f] * s[f];
+    T acc = coeff_dot<T, NF>(cf.c, s);
     if (iface) {  // also local node p of cell c-1
       cell_sum<T, NF>(plane, base_prev, stride, p, N, Kw, s);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) acc += cf.prev[f] * s[f];
+      acc = coeff_acc<T, NF>(acc, cf.prev, s);
     }
     return acc;
   }
@@ -386,19 +383,14 @@ __device__ __forceinline__ void tile_stencil(const Src& src, const Coeff<T> (&cf
               q1 = axis1.coeffs(g0 + 1, cf, L);
               q2 = axis2.coeffs(g0 + 1, cf, L);
             }
-            // axis 0 as lattice.cuh's coeff_sum and coeff_add
+            // axis 0 as lattice.cuh::axis_term
             cell_sum<T, NF>(cell, 0, 1, k, N, Kw, s);
-            T y = f0[0] * s[0];
-#pragma unroll
-            for (int f = 1; f < NF; ++f) y += f0[f] * s[f];
-            if (k == 0 && c > 0) {
-#pragma unroll
-              for (int f = 0; f < NF; ++f) y += f0prev[f] * sprev[f];
-            }
+            T y = coeff_dot<T, NF>(f0, s);
+            if (k == 0 && c > 0) y = coeff_acc<T, NF>(y, f0prev, sprev);
             // axes 1 and 2 from the node's plane
             const PlaneVals<T, NF> plane{ring + cell.off[k], PE};
-            y += axis1.term(plane, a1, p, Kw);
-            y += axis2.term(plane, a2, p, Kw);
+            y = add_rn(y, axis1.term(plane, a1, p, Kw));
+            y = add_rn(y, axis2.term(plane, a2, p, Kw));
             out(node0 + k * P12, g0, g1, g2, y, plane(col), pre[k]);
           }
         }

@@ -140,7 +140,7 @@ def tile_smem_bytes(t1: int, t2: int, p: int, nf: int, nr: int, itemsize: int) -
     return (N * (nf + nr) * (t1 + p + 1) * (t2 + p + 1) + N * N) * itemsize
 
 
-def tile_plan(gdims, p: int, nf: int, dtype, nr=None, tile=None, slab=None) -> dict:
+def tile_plan(gdims, p: int, nf: int, dtype, nr=None) -> dict:
     """The launch shape of the tiled K1/K2 kernels on a [G0, G1, G2] lattice
     of degree p with ``nf`` stencil fields of ``dtype``, formed from ``nr``
     raw operands per node (K1: nr = nf, the default; K2: u0, v0, kvpp and,
@@ -152,15 +152,13 @@ def tile_plan(gdims, p: int, nf: int, dtype, nr=None, tile=None, slab=None) -> d
     plane G0 - 1); ``halo`` (p, 1), the nodes read below and above a tile or
     slab; ``threads`` of a block (one per column, and enough to load a plane
     with ``LOAD_SLOTS`` nodes each); ``smem``, its dynamic shared-memory
-    bytes; ``grid`` (tiles along g2, tiles along g1, slabs). ``tile`` (in
-    cells) and ``slab`` override the module's sizes and are cut to the
-    lattice only. Otherwise the tile is cut to the lattice and halved until
-    it fits the shared-memory target, then the slab and the tile are halved
-    while the grid has fewer blocks than the card has SMs. Raises ValueError
-    for a plan a block cannot run."""
+    bytes; ``grid`` (tiles along g2, tiles along g1, slabs). The tile starts
+    at ``TILE_NODES`` and the slab at ``SLAB_CELLS``, both cut to the
+    lattice; the tile is halved until it fits ``SMEM_TARGET``, then the slab
+    and the tile are halved while the grid has fewer than ``MIN_BLOCKS``
+    blocks. Raises ValueError for a plan a block cannot run."""
     return dict(_tile_plan(tuple(int(g) for g in gdims), int(p), int(nf), int(nr or nf),
-                           ITEMSIZE[dtype], None if tile is None else tuple(tile), slab,
-                           TILE_NODES, SLAB_CELLS, SMEM_TARGET, MIN_BLOCKS))
+                           ITEMSIZE[dtype], TILE_NODES, SLAB_CELLS, SMEM_TARGET, MIN_BLOCKS))
 
 
 def _grid(gdims, n0, t1, t2, S):
@@ -168,8 +166,7 @@ def _grid(gdims, n0, t1, t2, S):
 
 
 @functools.lru_cache(maxsize=None)
-def _tile_plan(gdims, p, nf, nr, itemsize, tile, slab, tile_nodes, slab_cells, target,
-               min_blocks):
+def _tile_plan(gdims, p, nf, nr, itemsize, tile_nodes, slab_cells, target, min_blocks):
     n = lattice_grid(gdims, p)
     c1 = min(max(1, tile_nodes[0] // p), n[1])
     c2 = min(max(1, tile_nodes[1] // p), n[2])
@@ -187,12 +184,6 @@ def _tile_plan(gdims, p, nf, nr, itemsize, tile, slab, tile_nodes, slab_cells, t
             c1 //= 2
         else:
             c2 //= 2
-    if tile is not None:
-        c1, c2 = min(int(tile[0]), n[1]), min(int(tile[1]), n[2])
-    if slab is not None:
-        S = min(int(slab), n[0])
-    if min(c1, c2, S) < 1:
-        raise ValueError(f"tile {(c1, c2)} cells and slab {S} must be at least one cell")
     t1, t2 = c1 * p, c2 * p
     smem = tile_smem_bytes(t1, t2, p, nf, nr, itemsize)
     if smem > SMEM_MAX:
@@ -217,32 +208,6 @@ def plan_ints(plan: dict) -> ctypes.Array:
     t1, t2, slab, threads, smem bytes, grid x, y, z."""
     return (ctypes.c_int * 8)(*plan["tile"], plan["slab"], plan["threads"], plan["smem"],
                               *plan["grid"])
-
-
-def tile_ranges(plan: dict, gdims, p: int) -> dict:
-    """Per axis, the ranges of each block index that ``tile_stencil``
-    (csrc/tile.cuh) derives from the plan, as [n, 3] int arrays of
-    (owned begin, owned end, origin) and [n, 2] arrays of loaded (begin,
-    end): ``"g2"``/``"g1"`` per tile, the origin being the lattice
-    coordinate of a shared plane's first entry; ``"g0"`` per slab, planes,
-    the origin unused (0)."""
-    G0, G1, G2 = gdims
-    n0 = (G0 - 1) // p
-    (t1, t2), S = plan["tile"], plan["slab"]
-    gx, gy, gz = plan["grid"]
-    out = {}
-    for name, t, nb, G in (("g2", t2, gx, G2), ("g1", t1, gy, G1)):
-        A = np.arange(nb) * t
-        E = np.minimum(A + t, G)
-        O = A - p
-        out[name] = np.stack([A, E, O], 1)
-        out[name + " loaded"] = np.stack([np.maximum(O, 0), np.minimum(E + 1, G)], 1)
-    c_begin = np.arange(gz) * S
-    c_end = np.minimum(c_begin + S, n0)
-    owned_end = np.where(c_end == n0, G0, c_end * p)
-    out["g0"] = np.stack([c_begin * p, owned_end, np.zeros_like(c_begin)], 1)
-    out["g0 loaded"] = np.stack([np.maximum(c_begin - 1, 0) * p, c_end * p + 1], 1)
-    return out
 
 
 # ------------------------------------------------------------- plain version

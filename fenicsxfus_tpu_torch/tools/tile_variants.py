@@ -6,9 +6,8 @@ non-final and K1 constant on the 104³ p=4 headline lattice, fp32.
     python3 fenicsxfus_tpu_torch/tools/tile_variants.py [variant ...]
 
 A source variant (``SOURCE_VARIANTS``) is a copy of this package with one
-change to the kernel sources, made under ``_build/variants/`` and built
-there (all builds at once); each runs in its own process, in turn, on the
-same inputs. The committed sources also run the plan variants
+change to the kernel sources, built and run in its own process by the
+harness of ``variants.py``. The committed sources also run the plan variants
 (``PLAN_VARIANTS``: the plan's module sizes ``TILE_NODES`` and
 ``SLAB_CELLS`` of ``ops/stiffness.py``, set in that process). Every row holds
 the kernels to their plain versions first, then prints three medians of 10
@@ -17,14 +16,10 @@ of one ``stage_apply`` call (enqueue only, the kernel queue not full), the
 floor under the step time once the kernels are faster than the host.
 """
 
-import shutil
-import subprocess
-import sys
 import time
-from pathlib import Path
 
-PKG = Path(__file__).resolve().parents[1]
-VARIANT_DIR = PKG / "_build" / "variants"
+from variants import main, median_ms
+
 # thread 0 of each block adds the clock cycles of each phase of a cell
 # (copy wait, form + sync, sums, closing sync) to a device array; K2 only
 CLOCKED = [
@@ -63,8 +58,8 @@ SOURCE_VARIANTS = {
     # ablations: each leaves out one part of the work, so its result is wrong
     # and not checked; the time it saves is that part's share
     "ablation: no axes 1, 2": [
-        ("tile.cuh", "            y += axis1.term(plane, a1, p, Kw);\n"
-         "            y += axis2.term(plane, a2, p, Kw);\n", "")],
+        ("tile.cuh", "            y = add_rn(y, axis1.term(plane, a1, p, Kw));\n"
+         "            y = add_rn(y, axis2.term(plane, a2, p, Kw));\n", "")],
     "ablation: every plane copies plane 0": [
         ("tile.cuh", "const long long base = (long long)g0 * P12;",
          "const long long base = 0;")],
@@ -83,22 +78,9 @@ PTXAS = ("stage_tile_kernelIfLi3ELb1E", "stage_tile_kernelIfLi0ELb1E",
          "stiffness_tile_kernelIfLi1ELb1E")
 
 
-def make(name: str) -> Path:
-    """The variant's copy of the package (its root directory)."""
-    root = VARIANT_DIR / "".join(ch if ch.isalnum() else "_" for ch in name)
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(PKG, root / PKG.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for fname, old, new in SOURCE_VARIANTS[name]:
-        src = root / PKG.name / "csrc" / fname
-        text = src.read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"variant {name!r}: {old!r} is not once in {fname}")
-        src.write_text(text.replace(old, new))
-    return root
-
-
-def measure(plans: bool, check: bool) -> None:
-    """Run in a variant's process: the timings of its kernels (see above)."""
+def measure(mode: str) -> None:
+    """Run in a variant's process: the timings of its kernels (see above);
+    ``mode`` "plans" adds the plan variants, "ablation" skips the check."""
     import numpy as np
     import torch
 
@@ -108,21 +90,10 @@ def measure(plans: bool, check: bool) -> None:
         KIND_DENSE, KIND_FACET, KIND_FIELDS, pack_facet_vector, stage_apply, stage_plain,
     )
 
+    plans, check = mode == "plans", mode != "ablation"
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)
     rng = np.random.default_rng(3)
-
-    def med(fn, runs=10) -> float:
-        fn()
-        ts = []
-        for _ in range(runs):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-        return float(np.median(ts))
 
     def stage_args(kind, grid, h, coeff):
         lat = LatticeStiffness(grid, 4, (h, h, h), torch.float32)
@@ -165,7 +136,7 @@ def measure(plans: bool, check: bool) -> None:
 
     from fenicsxfus_tpu_torch._build import library
 
-    clk = getattr(library(), "fus_tile_clk", None) if hasattr(library(), "fus_tile_clk") else None
+    clk = getattr(library(), "fus_tile_clk", None)  # the "clocked" variant's
     rows = [("as built", stiffness.TILE_NODES, stiffness.SLAB_CELLS)]
     rows += PLAN_VARIANTS if plans else []
     for label, nodes, slab in rows:
@@ -179,7 +150,7 @@ def measure(plans: bool, check: bool) -> None:
             if clk is not None:
                 torch.cuda.synchronize()
                 clk(buf)
-            out.append(f"{name} " + " / ".join(f"{med(fn):.4f}" for _ in range(3)) + " ms")
+            out.append(f"{name} " + " / ".join(f"{median_ms(fn):.4f}" for _ in range(3)) + " ms")
             if clk is not None and name.startswith("K2"):
                 torch.cuda.synchronize()
                 clk(buf)
@@ -198,42 +169,6 @@ def measure(plans: bool, check: bool) -> None:
               f"{host * 1e6:.1f} us", flush=True)
 
 
-def main() -> None:
-    if len(sys.argv) > 2 and sys.argv[1] == "--in":  # a variant's own process
-        sys.path.insert(0, sys.argv[2])
-        from fenicsxfus_tpu_torch import _build
-
-        if sys.argv[3] == "build":  # print the fp32 p=4 kernels' ptxas lines
-            entry = ""
-            for line in _build.build()[2].splitlines():
-                if "Compiling entry function" in line:
-                    entry = line.split("'")[1]
-                elif any(k in entry for k in PTXAS) and ("registers" in line or "spill" in line):
-                    print(entry[8:40], line.replace("ptxas info    :", "").strip(), flush=True)
-        else:
-            measure(sys.argv[3] == "plans", sys.argv[3] != "ablation")
-        return
-    names = sys.argv[1:] or list(SOURCE_VARIANTS)
-    roots = {n: make(n) for n in names}
-    builds = {n: subprocess.Popen([sys.executable, __file__, "--in", str(r), "build"],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-              for n, r in roots.items()}
-    ptxas = {}
-    for n, proc in builds.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {n!r} did not build:\n{log}")
-        ptxas[n] = "; ".join(line for line in log.splitlines() if line)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(f"card: {card.strip()}", flush=True)
-    for n, r in roots.items():
-        print(f"{n} [{ptxas[n]}]", flush=True)
-        mode = "plans" if n == "committed" else "ablation" if "ablation" in n else "time"
-        res = subprocess.run([sys.executable, __file__, "--in", str(r), mode],
-                             capture_output=True, text=True, timeout=900)
-        print(res.stdout.rstrip() or res.stderr.strip().splitlines()[-1], flush=True)
-
-
 if __name__ == "__main__":
-    main()
+    main(__file__, SOURCE_VARIANTS, PTXAS, measure,
+         lambda n: "plans" if n == "committed" else "ablation" if "ablation" in n else "time")

@@ -1,11 +1,11 @@
 """K3 (the whole-step wavefront) and variants of its design, on one CUDA
 device. Each variant is a copy of this package with one change to the K3
-sources (``VARIANTS``), made under ``_build/variants/`` and built there (all
-builds at once); then each runs in its own process, in turn, on the same
-inputs: K3 ``focused`` at the HITU lattice (80,47,47) p=4 (unit cells, dense
-m0/d2) and K3 ``linear`` at the 104³ headline lattice (inv_m separable),
-three medians of 10 launches by CUDA events each, beside four K2 launches
-of the same step, and whether K3 equals them bit for bit.
+sources (``VARIANTS``), built and run in its own process by the harness of
+``variants.py``, on the same inputs: K3 ``focused`` at the HITU lattice
+(80,47,47) p=4 (unit cells, dense m0/d2) and K3 ``linear`` at the 104³
+headline lattice (inv_m separable), three medians of 10 launches by CUDA
+events each, beside four K2 launches of the same step, and whether K3
+equals them bit for bit.
 
     python3 fenicsxfus_tpu_torch/tools/wave_variants.py [variant ...]
 
@@ -13,13 +13,7 @@ Two variants are for timing only and give wrong steps: "no waits" races,
 and "__ldg slopes" may read slopes through a stale non-coherent line.
 """
 
-import shutil
-import subprocess
-import sys
-from pathlib import Path
-
-PKG = Path(__file__).resolve().parents[1]
-VARIANT_DIR = PKG / "_build" / "variants"
+from variants import main, median_ms
 
 L2_LOAD = """struct L2Load {
   template <typename T>
@@ -54,23 +48,11 @@ VARIANTS = {
                          "__launch_bounds__(kWaveThreads, 3)")],
 }
 
-
-def make(name: str) -> Path:
-    """The variant's copy of the package (its root directory)."""
-    root = VARIANT_DIR / name.replace(" ", "_").replace("/", "_")
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(PKG, root / PKG.name,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for fname, old, new in VARIANTS[name]:
-        src = root / PKG.name / "csrc" / fname
-        text = src.read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"variant {name!r}: {old!r} is not once in {fname}")
-        src.write_text(text.replace(old, new))
-    return root
+# the focused fp32 K3 kernel
+PTXAS = ("step_wave_kernelIfLi3ELb0",)
 
 
-def measure() -> str:
+def measure(mode: str) -> None:
     """Run in a variant's process: the timings of its K3 (see above)."""
     import numpy as np
     import torch
@@ -87,18 +69,6 @@ def measure() -> str:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(12)
-
-    def median_ms(fn, runs=10):
-        fn()
-        ts = []
-        for _ in range(runs):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-        return float(np.median(ts))
 
     out = []
     for kind, grid, h, coeff in (("focused", (80, 47, 47), (1.0,) * 3, 1.0),
@@ -134,45 +104,8 @@ def measure() -> str:
                    + f" ms, four K2 launches {k2_ms:.3f} ms, bit for bit {same}")
         del args, got, k2, dense, facets
         torch.cuda.synchronize()
-    return "; ".join(out)
-
-
-def main() -> None:
-    if len(sys.argv) > 2 and sys.argv[1] == "--in":  # a variant's own process
-        sys.path.insert(0, sys.argv[2])
-        from fenicsxfus_tpu_torch import _build
-
-        if sys.argv[3] == "build":  # print the focused fp32 kernel's ptxas lines
-            entry = ""
-            for line in _build.build()[2].splitlines():
-                if "Compiling entry function" in line:
-                    entry = line.split("'")[1]
-                elif "step_wave_kernelIfLi3ELb0" in entry and ("registers" in line
-                                                                  or "spill" in line):
-                    print(line.replace("ptxas info    :", "").strip(), flush=True)
-        else:
-            print(measure(), flush=True)
-        return
-    names = sys.argv[1:] or list(VARIANTS)
-    roots = {n: make(n) for n in names}
-    builds = {n: subprocess.Popen([sys.executable, __file__, "--in", str(r), "build"],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-              for n, r in roots.items()}
-    ptxas = {}
-    for n, proc in builds.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {n!r} did not build:\n{log}")
-        ptxas[n] = "; ".join(line for line in log.splitlines() if line)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(f"card: {card.strip()}", flush=True)
-    for n, r in roots.items():
-        res = subprocess.run([sys.executable, __file__, "--in", str(r), "time"],
-                             capture_output=True, text=True, timeout=900)
-        line = res.stdout.strip() or res.stderr.strip().splitlines()[-1]
-        print(f"{n}: {line} [K3 focused fp32: {ptxas[n]}]", flush=True)
+    print("; ".join(out), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(__file__, VARIANTS, PTXAS, measure)

@@ -194,6 +194,44 @@ def test_tiled_k2_matches_plain(grid, plan, kind, degree, dtype, cuda, monkeypat
             assert _rel(a, b) < TOLS[dtype]
 
 
+# (9, 5, 7) cells run the general tile kernel; (6, 4, 16) at p = 4 in fp32,
+# under the main path's tile, the compile-time 8 x 32 one
+EQUAL_GRIDS = [(GRID, "default"), ((6, 4, 16), "main-path tile")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", sorted(KIND_FIELDS))
+@pytest.mark.parametrize("grid,plan", EQUAL_GRIDS)
+def test_split_and_wave_equal_tiled_k2_bit_for_bit(grid, plan, kind, dtype, cuda, monkeypatch):
+    """Every kernel rounds the per-node arithmetic alike (lattice.cuh's
+    written-out roundings): K5a -> K5b equals the tiled K2 and K3 equals
+    four tiled K2 launches bit for bit, and for ``linear`` K4a -> K4b
+    equals the tiled K1."""
+    _use_plan(plan, monkeypatch)
+    lat = LatticeStiffness(grid, 4, (1.0, 1.0, 1.0), dtype)
+    rng = np.random.default_rng(len(kind) + 7)
+    for dg0 in (False, True):
+        for present, final in (STAGES[2], STAGES[6]):
+            args = _stage_args(kind, lat, rng, cuda, present, final, dg0)
+            _, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, _ = args
+            yA = stage_a_apply(kind, u0, v0, kvp, kvpp, Fs, scal, p)
+            split = stage_b_apply(kind, u0, v0, kvp, kvpp, prev, yA, Fs, dense, facets, scal, p,
+                                  final)
+            whole = stage_apply(*args)
+            for a, b in (zip(split, whole) if final else [(split, whole)]):
+                assert torch.equal(a, b)
+        wave = _wave_args(kind, lat, rng, cuda, dg0, False)
+        got = step_wave_apply(**wave)
+        k2 = step_wave_plain(**wave, stage_fn=stage_apply)
+        step_wave_check()
+        assert torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1])
+        if kind == "linear":
+            x = [u0, v0]
+            for xs, F in ((x[:1], Fs[:1]), (x, [Fs[0], Fs[0]])):
+                y = stiffness_axes12_apply(xs, F, stiffness_axis0_apply(xs, F, 4), 4)
+                assert torch.equal(y, stiffness_apply(xs, F, 4))
+
+
 def test_refused_plan_raises(cuda, monkeypatch):
     """A plan the card refuses (more shared memory than a block may have) or
     that the C entry refuses (a grid that leaves nodes without an owner)

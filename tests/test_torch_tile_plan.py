@@ -7,7 +7,8 @@ every node has exactly one owner, every node a block reads lies inside the
 lattice and inside the block's shared plane, the shared memory fits a block,
 and the two large lattices give the card at least one block per SM. The walk
 of ``tile_stencil`` (cells along g0, columns of the tile) is replayed here
-from the plan, independently of ``tile_ranges``.
+from the plan, and ``_ranges`` restates the kernel's ownership and halo
+arithmetic.
 """
 
 import numpy as np
@@ -19,9 +20,9 @@ from fenicsxfus_tpu_torch.ops.stiffness import (
     SMEM_MAX,
     plan_ints,
     tile_plan,
-    tile_ranges,
     tile_smem_bytes,
 )
+from fenicsxfus_tpu_torch.ops import stiffness
 
 CELLS = {
     "small": (9, 5, 7),
@@ -41,6 +42,32 @@ def _stencil_span(g, n, p):
     k = g - c * p
     low = np.where((k == 0) & (c > 0), (c - 1) * p, c * p)
     return low, c * p + p
+
+
+def _ranges(plan, gdims, p):
+    """Per axis, the ranges of each block index as csrc/tile.cuh's
+    ``tile_stencil`` derives them from the plan: [n, 3] int arrays of (owned
+    begin, owned end, origin) and [n, 2] arrays of loaded (begin, end);
+    ``"g2"``/``"g1"`` per tile, the origin being the lattice coordinate of a
+    shared plane's first entry (A - p); ``"g0"`` per slab, planes, the origin
+    unused (0)."""
+    G0, G1, G2 = gdims
+    n0 = (G0 - 1) // p
+    (t1, t2), S = plan["tile"], plan["slab"]
+    gx, gy, gz = plan["grid"]
+    out = {}
+    for name, t, nb, G in (("g2", t2, gx, G2), ("g1", t1, gy, G1)):
+        A = np.arange(nb) * t
+        E = np.minimum(A + t, G)
+        O = A - p
+        out[name] = np.stack([A, E, O], 1)
+        out[name + " loaded"] = np.stack([np.maximum(O, 0), np.minimum(E + 1, G)], 1)
+    c_begin = np.arange(gz) * S
+    c_end = np.minimum(c_begin + S, n0)
+    owned_end = np.where(c_end == n0, G0, c_end * p)
+    out["g0"] = np.stack([c_begin * p, owned_end, np.zeros_like(c_begin)], 1)
+    out["g0 loaded"] = np.stack([np.maximum(c_begin - 1, 0) * p, c_end * p + 1], 1)
+    return out
 
 
 def _walk_planes(begin_cell, end_cell, n0, p):
@@ -74,7 +101,7 @@ def test_plan_owns_every_node_once_and_reads_inside(name, p, dtype):
         # the grid csrc/tile.cuh::read_plan accepts
         assert (gx, gy, gz) == (-(-gdims[2] // t2), -(-gdims[1] // t1), -(-cells[0] // S))
         assert list(plan_ints(plan)) == [t1, t2, S, plan["threads"], plan["smem"], gx, gy, gz]
-        r = tile_ranges(plan, gdims, p)
+        r = _ranges(plan, gdims, p)
 
         # axes 1 and 2: the tiles' owned ranges partition the axis, and each
         # tile's stencil reads stay in its loaded range and its shared plane
@@ -112,14 +139,26 @@ def test_plan_owns_every_node_once_and_reads_inside(name, p, dtype):
             assert gx * gy * gz >= SMS
 
 
-def test_plan_too_large_for_shared_memory_raises():
+def _sizes(monkeypatch, nodes, slab=8, target=10**9, min_blocks=1):
+    """Start the plan at other module sizes (no halving for shared memory or
+    block count unless ``target``/``min_blocks`` ask for it)."""
+    monkeypatch.setattr(stiffness, "TILE_NODES", nodes)
+    monkeypatch.setattr(stiffness, "SLAB_CELLS", slab)
+    monkeypatch.setattr(stiffness, "SMEM_TARGET", target)
+    monkeypatch.setattr(stiffness, "MIN_BLOCKS", min_blocks)
+
+
+def test_plan_too_large_for_shared_memory_raises(monkeypatch):
     gdims = (417, 417, 417)
+    _sizes(monkeypatch, (416, 64))
     with pytest.raises(ValueError, match="shared memory"):
-        tile_plan(gdims, 4, 2, torch.float32, tile=(104, 16))
+        tile_plan(gdims, 4, 2, torch.float32)
+    _sizes(monkeypatch, (4, 160))
     with pytest.raises(ValueError, match="threads"):
-        tile_plan(gdims, 4, 2, torch.float32, tile=(1, 40))
+        tile_plan(gdims, 4, 2, torch.float32)
     # a tile of one cell fits
-    assert tile_plan(gdims, 4, 2, torch.float32, tile=(1, 1))["smem"] <= SMEM_MAX
+    _sizes(monkeypatch, (4, 4))
+    assert tile_plan(gdims, 4, 2, torch.float32)["smem"] <= SMEM_MAX
 
 
 def test_plan_sizes_per_type_and_main_path_shapes():
@@ -136,8 +175,16 @@ def test_plan_sizes_per_type_and_main_path_shapes():
         assert 3 * plan64["smem"] <= SMEM_MAX
 
 
-def test_plan_overrides_are_cut_to_the_lattice():
-    plan = tile_plan((37, 21, 29), 4, 1, torch.float64, tile=(50, 2), slab=50)
-    assert plan["tile"] == (20, 8) and plan["slab"] == 9 and plan["grid"] == (4, 2, 1)
-    with pytest.raises(ValueError):
-        tile_plan((37, 21, 29), 4, 1, torch.float64, tile=(0, 2))
+def test_plan_overrides_are_cut_to_the_lattice(monkeypatch):
+    """Module sizes larger than the lattice are cut to it; below the card's
+    SM count the plan halves the slab first, then the tile along g1, then
+    along g2."""
+    gdims = (37, 21, 29)  # (9, 5, 7) cells at p = 4
+    with monkeypatch.context() as m:
+        _sizes(m, (200, 8), slab=50)
+        plan = tile_plan(gdims, 4, 1, torch.float64)
+        assert plan["tile"] == (20, 8) and plan["slab"] == 9 and plan["grid"] == (4, 2, 1)
+    # default sizes: 2 x 7 cells and a slab of 8 give 12 blocks; slab 8 -> 1
+    # (54 blocks), g1 2 -> 1 cell (108), g2 7 -> 3 cells (162 >= 132)
+    plan = tile_plan(gdims, 4, 1, torch.float64)
+    assert plan["tile"] == (4, 12) and plan["slab"] == 1 and plan["grid"] == (3, 6, 9)
