@@ -56,8 +56,10 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    dense and separable for linear and lossy, and against four K2 launches
    of the same step, bit for bit (every kernel rounds alike); the
    step at the HITU lattice on 1 block against the default grid, bit for
-   bit; then HITU W-H101-WATER (one K3 launch per step, peak held against
-   the JAX package's run and phase 7's), the headline (separable inv_m,
+   bit; the plan (tile, slab, lag, ring of the slopes) and the share of
+   the bound at the HITU lattice and the headline; then HITU W-H101-WATER
+   (one K3 launch per step, peak held against the JAX package's run and
+   phase 7's, device memory peak beside phase 7's), the headline (separable inv_m,
    ``energy()`` through K1) and the lossy and Westervelt channel gates, all
    through K3, each followed by 3 steps held against the plain (or unfused)
    path.
@@ -990,6 +992,22 @@ def wave_floor(args: dict) -> dict:
     return floor_ms(read, 2 * nbytes(u0), flops)
 
 
+def wave_plan_line(gdims, kind: str) -> str:
+    """The fp32 K3 plan of ``kind`` on a lattice: tile, slab, lag, ring, the
+    item grid and the rings' bytes."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.stage import KIND_FIELDS, KIND_RAW
+    from fenicsxfus_tpu_torch.ops.step_wave import ring_bytes, wave_plan
+
+    nf = KIND_FIELDS[kind]
+    plan = wave_plan(gdims, 4, nf, torch.float32, nr=KIND_RAW[nf])
+    return (f"K3 plan: tile {plan['tile']}, slab {plan['slab']} cell(s), lag {plan['lag']}, "
+            f"ring {plan['ring']} slabs, items {plan['grid']} x 4 stages, threads "
+            f"{plan['threads']}, smem {plan['smem']} B, rings "
+            f"{ring_bytes(plan, gdims, torch.float32) / 1e6:.2f} MB")
+
+
 def phase_k3(device, card) -> dict:
     """K3 against its plain version for all four kinds (inv_m dense and
     separable for linear and lossy), beside four K2 launches of the same
@@ -1043,14 +1061,16 @@ def phase_k3(device, card) -> dict:
                     k2ms = cuda_median_ms(lambda: step_wave_plain(**args, stage_fn=stage_apply))
                     step_wave_check()
                     where = "headline" if grid == headline else "HITU lattice"
+                    bound = wave_floor(args)
                     say(f"[12] K3 {kind} {where} {form}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-                        f"four K2 launches {k2ms:.3f} ms (median of 10, CUDA events; {card})")
+                        f"four K2 launches {k2ms:.3f} ms, {share_text(bound, ms)} (median of "
+                        f"10, CUDA events; {card}); {wave_plan_line(lat.gdims, kind)}")
                     # the entry of the kernels line: the shape and inv_m form
                     # of the kind's main path (the headline for linear)
                     main_form = sep == (kind in SEP_KINDS)
                     if main_form and (grid == headline or kind != "linear"):
                         out[kind] = {"max_abs_err": worst[1], "ms": ms, "plain_ms": pms,
-                                     "k2_ms": k2ms, **wave_floor(args)}
+                                     "k2_ms": k2ms, **bound}
                 del args, got, ref, k2
                 torch.cuda.synchronize()
 
@@ -1121,6 +1141,8 @@ def main() -> int:
     say(f"[12] HITU solve: K3 {wave['hitu']['solve_s']:.3f} s against K2 "
         f"{hitu_run['solve_s']:.3f} s; headline: K3 {wave['headline']['rate']:.4f} against K2 "
         f"{run['rate']:.4f} GDOF-RK4-updates/s ({card})")
+    say(f"[12] HITU device memory peak: K3 {wave['hitu']['peak_gib']:.3f} GiB against K2 "
+        f"{hitu_run['peak_gib']:.3f} GiB ([7]); {wave_plan_line((321, 189, 189), 'focused')}")
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
     # from phase [11], K3 from phase [12] (HITU for focused, the headline

@@ -117,8 +117,9 @@ def library() -> ctypes.CDLL:
     lib.fus_stage.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _INTP, _P, _I]
     lib.fus_stage_a.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _P, _I]
     lib.fus_stage_b.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _I]
-    lib.fus_step_wave.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _P, _I,
-                                  _P, _I]
+    # K3 takes its plan (ops/step_wave.py::wave_plan) as 11 ints
+    lib.fus_step_wave.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _INTP, _P,
+                                  _P, _P, _P, _I]
     for name in ("fus_stiffness_apply", "fus_stiffness_axis0", "fus_stiffness_axes12",
                  "fus_stage", "fus_stage_a", "fus_stage_b", "fus_step_wave"):
         getattr(lib, name).restype = _I

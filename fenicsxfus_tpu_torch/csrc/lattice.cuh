@@ -1,7 +1,7 @@
 // Shared device code of the lattice kernels. The one-thread-per-node
-// stencil ``axis_at`` below serves K3 (step_wave.cu), K4a/K4b
-// (stiffness_ab.cu) and K5a/K5b (stage_ab.cu) only; K1 (stiffness.cu) and
-// K2 (stage.cu) run the shared-memory tile of tile.cuh, which builds on the
+// stencil ``axis_at`` below serves K4a/K4b (stiffness_ab.cu) and K5a/K5b
+// (stage_ab.cu) only; K1 (stiffness.cu), K2 (stage.cu) and K3
+// (step_wave.cu) run the shared-memory tile of tile.cuh, which builds on the
 // per-cell sums here (``cell_sum``, ``coeff_dot``, ``coeff_acc``) so that
 // every kernel does the same arithmetic per node.
 //
@@ -69,7 +69,7 @@ inline K1Mat<T> make_k1(const double* K1, int p) {
 // what it sees there depends on the kernel around the sum (an unrolled
 // cell, a branch at the interface); so every sum below says which products
 // it fuses (fma_rn) and which it rounds on their own (mul_rn, add_rn), and
-// the tile of K1/K2 and the axis_at of K3/K4/K5 round alike.
+// the tile of K1/K2/K3 and the axis_at of K4/K5 round alike.
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
@@ -209,17 +209,6 @@ __device__ __forceinline__ T axes12_at(const Src& src, const Coeff<T> (&cf)[NF],
   return add_rn(y, axis_at<2>(src, cf, L, K, node, g0, g1, g2));
 }
 
-// Stiffness sum_f K_{cf[f]}(x_f) at a node: the three axis terms, summed in
-// axis order (K3; the tiles of K1 and K2 add in the same order), so the
-// split K4a -> K4b adds in the same order.
-template <typename T, int NF, typename Src>
-__device__ __forceinline__ T stiffness_at(const Src& src, const Coeff<T> (&cf)[NF],
-                                          const Lattice& L, const K1Mat<T>& K,
-                                          long long node, int g0, int g1, int g2) {
-  return axes12_at<T, NF>(src, cf, L, K, node, g0, g1, g2,
-                          axis_at<0>(src, cf, L, K, node, g0, g1, g2));
-}
-
 // Plain read of NF fields through the read-only cache.
 template <typename T, int NF>
 struct FieldLoad {
@@ -230,10 +219,13 @@ struct FieldLoad {
     for (int f = 0; f < NF; ++f) r.v[f] = __ldg(x[f] + i);
     return r;
   }
-  // raw() and form_raw() as StageFields's (stage.cuh), for the tile: the
-  // fields are their own raw operands
+  // raw(), plane_base() and form_raw() as StageFields's (stage.cuh), for the
+  // tile: the fields are their own raw operands
   static constexpr int NR = NF;
   __device__ __forceinline__ const T* raw(int r) const { return x[r]; }
+  __device__ __forceinline__ long long plane_base(int, int, long long base, long long) const {
+    return base;
+  }
   __device__ __forceinline__ Vals<T, NF> form_raw(const T* q, int RE) const {
     Vals<T, NF> r;
 #pragma unroll

@@ -3,7 +3,7 @@
 // axis-0 / axes-1,2 boundary) and K3 (step_wave.cu, the four stages of an
 // RK4 step in one launch). The kinds, the argument struct and its
 // unpacking from the C entries' operand slots, the stage fields (formed
-// once per loaded node by K2's tile, at each stencil read by K3 and K5),
+// once per loaded node by the tile of K2 and K3, at each stencil read by K5),
 // the packed facet terms, the kind's epilogue and the final stage's step
 // update live here once.
 #pragma once
@@ -74,10 +74,11 @@ struct StageArgs {
 // How a kernel reads the slopes kvp, kvpp and prev. K2 and K5 read slopes
 // that an earlier launch wrote: read-only for the whole kernel, so through
 // the read-only cache (ld.global.nc) in the stencil and plainly at the node.
-// K3 (step_wave.cu) reads slopes that other blocks of the same launch wrote
-// and released, so always plainly: a plain (weak) load ordered after the
-// block's acquire observes the released writes (PTX memory model), while
-// ld.global.nc is valid only for data that no one writes during the kernel.
+// K3 (wave.cuh) reads slopes that other blocks of the same launch wrote
+// and released, so always plainly (the tile's cp.async copies, PlainLoad at
+// the node): a plain (weak) load ordered after the block's acquire observes
+// the released writes (PTX memory model), while ld.global.nc is valid only
+// for data that no one writes during the kernel.
 struct ReadOnlyLoad {
   template <typename T>
   __device__ __forceinline__ T operator()(const T* p, long long i) const {
@@ -94,7 +95,7 @@ struct PlainLoad {
 // The stage fields at one node, un = u0 + alpha*v0 [+ beta*kvpp] and
 // vn = v0 [+ alpha*kvp], each bracket present with its slope; ``kvpp()``
 // and ``kvp()`` read the slope and are called only then. Every kernel forms
-// them here (K2's tile from its shared copies, K3 and K5 at each stencil
+// them here (the tile of K2 and K3 from its shared copies, K5 at each stencil
 // read and at the node), with the fma written out, so they round alike.
 template <typename T, typename S>
 __device__ __forceinline__ T form_un(T u0, T v0, T alpha, T beta, bool has_kvpp,
@@ -127,11 +128,15 @@ struct StageFields {
     return form(__ldg(u0 + i), __ldg(v0 + i), [&](int s) { return ld(s ? kvp : kvpp, i); });
   }
   // For the tile (tile.cuh), which copies the operands into shared memory
-  // first: the NR raw operand arrays u0, v0, kvpp and (two fields) kvp, and
-  // the fields formed from a node's copies q[r * RE].
+  // first: the NR raw operand arrays u0, v0, kvpp and (two fields) kvp, where
+  // their plane g0 starts (base = g0*P12: they are lattice fields), and the
+  // fields formed from a node's copies q[r * RE].
   static constexpr int NR = NF > 1 ? 4 : 3;
   __device__ __forceinline__ const T* raw(int r) const {
     return r == 0 ? u0 : r == 1 ? v0 : r == 2 ? kvpp : kvp;
+  }
+  __device__ __forceinline__ long long plane_base(int, int, long long base, long long) const {
+    return base;
   }
   __device__ __forceinline__ Vals<T, NF> form_raw(const T* q, int RE) const {
     return form(q[0], q[RE], [&](int s) { return q[(2 + s) * RE]; });
@@ -160,10 +165,12 @@ __device__ __forceinline__ T facet_at(const PackedFacet<T>& pf, const Lattice& L
   return f;
 }
 
-// vn = v0 + alpha*kvp (v0 without kvp) at a node, the slope read through ld.
+// vn = v0 + alpha*kvp (v0 without kvp) at a node, the slope read through ld
+// at index ``sidx`` of the slope arrays (the node, or K3's ring index).
 template <typename T, typename Ld>
-__device__ __forceinline__ T stage_vn(const StageArgs<T>& a, long long node, const Ld& ld) {
-  return form_vn(ld(a.v0, node), a.alpha, a.kvp != nullptr, [&] { return ld(a.kvp, node); });
+__device__ __forceinline__ T stage_vn(const StageArgs<T>& a, long long node, long long sidx,
+                                      const Ld& ld) {
+  return form_vn(ld(a.v0, node), a.alpha, a.kvp != nullptr, [&] { return ld(a.kvp, sidx); });
 }
 
 // The rest of a stage at one node once its assembled stiffness ``acc`` and
@@ -177,12 +184,16 @@ __device__ __forceinline__ T stage_vn(const StageArgs<T>& a, long long node, con
 // every rounding written out (lattice.cuh), so K2, K3 and K5b agree.
 // SEP (K3, linear and lossy only): inv_m is separable and arrives as
 // dense[0] = a [G0] and dense[1] = P [G1, G2], inv_m[g] = a[g0] * P[g1, g2].
-// The separable inv_m, u0, v0 and the slopes are read through Ld.
+// The separable inv_m, u0, v0 and the slopes are read through Ld. The
+// slopes kvp, kvpp, prev and kv_out are read and written at index ``sidx``
+// (the node; K3's slopes live in rings, ops/step_wave.py), the rest at the
+// node.
 template <typename T, int KIND, bool SEP = false, typename Ld = PlainLoad, typename VN,
           typename DV>
 __device__ __forceinline__ void stage_epilogue(const StageArgs<T>& a, const Lattice& L,
-                                               long long node, int g0, int g1, int g2, T acc,
-                                               T un, const VN& vn, const DV& dv) {
+                                               long long node, long long sidx, int g0, int g1,
+                                               int g2, T acc, T un, const VN& vn,
+                                               const DV& dv) {
   using Tr = KindTraits<KIND>;
   static_assert(!(SEP && Tr::NONLINEAR), "a separable inv_m is for linear and lossy only");
   const Ld ld{};
@@ -206,16 +217,16 @@ __device__ __forceinline__ void stage_epilogue(const StageArgs<T>& a, const Latt
     kv = mul_rn(add_rn(-acc, corr), dv(0));
   }
   if (!a.final_stage) {
-    a.kv_out[node] = kv;
+    a.kv_out[sidx] = kv;
     return;
   }
   // slopes in stage order: [kv_{i-3}], [kv_{i-2}], [kv_{i-1}], kv_i
   const T v0 = ld(a.v0, node);
   T kvs[4];
   int ns = 0;
-  if (a.prev != nullptr) kvs[ns++] = ld(a.prev, node);
-  if (a.kvpp != nullptr) kvs[ns++] = ld(a.kvpp, node);
-  if (a.kvp != nullptr) kvs[ns++] = ld(a.kvp, node);
+  if (a.prev != nullptr) kvs[ns++] = ld(a.prev, sidx);
+  if (a.kvpp != nullptr) kvs[ns++] = ld(a.kvpp, sidx);
+  if (a.kvp != nullptr) kvs[ns++] = ld(a.kvp, sidx);
   kvs[ns++] = kv;
   T u1 = fma_rn(a.sb, v0, ld(a.u0, node));
   for (int j = 0; j < ns - 1; ++j) u1 = fma_rn(a.cu[j], kvs[j], u1);
@@ -226,7 +237,7 @@ __device__ __forceinline__ void stage_epilogue(const StageArgs<T>& a, const Latt
 }
 
 // The rest of a stage at one node once its assembled stiffness ``acc`` is
-// known (K3, K5b): the stage fields un and vn formed at the node, then
+// known (K5b): the stage fields un and vn formed at the node, then
 // stage_epilogue. The slopes and (in stage_epilogue) the dense operands are
 // read through Ld.
 template <typename T, int KIND, bool SEP = false, typename Ld = PlainLoad>
@@ -239,7 +250,7 @@ __device__ __forceinline__ void stage_finish(const StageArgs<T>& a, const Lattic
   if constexpr (KindTraits<KIND>::NONLINEAR)
     un = form_un(a.u0[node], v0, a.alpha, a.beta, a.kvpp != nullptr,
                  [&] { return ld(a.kvpp, node); });
-  stage_epilogue<T, KIND, SEP, Ld>(a, L, node, g0, g1, g2, acc, un, [&] { return vn; },
+  stage_epilogue<T, KIND, SEP, Ld>(a, L, node, node, g0, g1, g2, acc, un, [&] { return vn; },
                                    [&](int i) { return ld(a.dense[i], node); });
 }
 

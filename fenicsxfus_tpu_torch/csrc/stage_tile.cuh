@@ -34,12 +34,12 @@ struct StageOut {
                                              const Vals<T, Tr::NF>& x, const Pre& pre) const {
     const auto dv = [&](int i) { return pre.d[i]; };
     if constexpr (Tr::NF > 1) {
-      stage_epilogue<T, KIND, false, ReadOnlyLoad>(a, L, node, g0, g1, g2, acc, x.v[0],
+      stage_epilogue<T, KIND, false, ReadOnlyLoad>(a, L, node, node, g0, g1, g2, acc, x.v[0],
                                                    [&] { return x.v[1]; }, dv);
     } else {
       stage_epilogue<T, KIND, false, ReadOnlyLoad>(
-          a, L, node, g0, g1, g2, acc, x.v[0], [&] { return stage_vn(a, node, ReadOnlyLoad{}); },
-          dv);
+          a, L, node, node, g0, g1, g2, acc, x.v[0],
+          [&] { return stage_vn(a, node, node, ReadOnlyLoad{}); }, dv);
     }
   }
 };
@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(kTileMaxThreads, kTileMinBlocks)
   Coeff<T> cf[Tr::NF];
 #pragma unroll
   for (int f = 0; f < Tr::NF; ++f) cf[f] = a.coeff[f];
-  tile_stencil<T, Tr::NF, MAIN>(stage_fields<T, KIND>(a), cf, L, K, S,
+  tile_stencil<T, Tr::NF, MAIN>(stage_fields<T, KIND>(a), cf, L, K, S, blockIdx,
                                 StageOut<T, KIND>{a, L});
 }
 

@@ -44,7 +44,7 @@ __global__ void __launch_bounds__(kTileMaxThreads, kTileMinBlocks)
   Coeff<T> cf[NF];
   cf[0] = c0;
   if constexpr (NF > 1) cf[1] = c1;
-  tile_stencil<T, NF, MAIN>(x, cf, L, K, S, StoreY<T, NF>{y});
+  tile_stencil<T, NF, MAIN>(x, cf, L, K, S, blockIdx, StoreY<T, NF>{y});
 }
 
 template <typename T>

@@ -1,7 +1,8 @@
-// The shared-memory tiled stencil of K1 (stiffness.cu) and K2 (stage.cu).
+// The shared-memory tiled stencil of K1 (stiffness.cu), K2 (stage.cu) and K3
+// (step_wave.cu, one work item at a time: wave.cuh).
 //
-// Replaces, for K1 and K2, the one-thread-per-node stencil of
-// lattice.cuh::axis_at (which K3, K4 and K5 still run). Its TPU counterparts
+// Replaces, for K1, K2 and K3, the one-thread-per-node stencil of
+// lattice.cuh::axis_at (which K4 and K5 still run). Its TPU counterparts
 // are the window walks of fenicsxfus_tpu/ops/pallas_v3.py::apply_v3 and
 // ops/pallas_stage_v3.py::_stage_call: they form the stage fields once per
 // window row in VMEM, keep the N planes of axis 0 resident, and carry the
@@ -245,15 +246,20 @@ struct ColumnAxis {
   }
 };
 
-// The stiffness sum_f K_{cf[f]}(x_f) at every node the block owns, handed
-// to ``out(node, g0, g1, g2, y, x, pre)`` with x the node's own field values
-// and pre what ``out.prefetch(node)`` read before the cell's sums. ``src``
-// names its NR raw operand arrays (``src.raw(r)``, null if absent) and forms
-// the NF field values of a node from them (``src.form_raw``).
+// The stiffness sum_f K_{cf[f]}(x_f) at every node of the tile ``at`` (x:
+// tile along g2, y: tile along g1, z: slab; K1 and K2 pass blockIdx, K3 its
+// work item), handed to ``out(node, g0, g1, g2, y, x, pre)`` with x the
+// node's own field values and pre what ``out.prefetch(node)`` read before
+// the cell's sums. ``src`` names its NR raw operand arrays (``src.raw(r)``,
+// null if absent), where plane g0 starts in each (``src.plane_base(r, g0,
+// base, P12)``: base = g0*P12 where the array is a lattice field) and forms
+// the NF field values of a node from them (``src.form_raw``). The walk ends
+// in a __syncthreads.
 template <typename T, int NF, bool MAIN, typename Src, typename Out>
 __device__ __forceinline__ void tile_stencil(const Src& src, const Coeff<T> (&cf)[NF],
                                              const Lattice& L, const K1Mat<T>& K,
-                                             const TileShape& S, const Out& out) {
+                                             const TileShape& S, const dim3& at,
+                                             const Out& out) {
   constexpr int NMAX = MAIN ? 5 : kMaxN;  // planes of a cell, at most
   constexpr int NR = Src::NR;
   const int p = MAIN ? 4 : L.p;
@@ -271,7 +277,7 @@ __device__ __forceinline__ void tile_stencil(const Src& src, const Coeff<T> (&cf
 
   // owned columns [A, E) per axis, loaded nodes [lo, min(E + 1, G)), and
   // O = A - p, the lattice coordinate of a shared plane's first entry
-  const int A1 = blockIdx.y * t1, A2 = blockIdx.x * t2;
+  const int A1 = at.y * t1, A2 = at.x * t2;
   const int E1 = min(A1 + t1, G1), E2 = min(A2 + t2, G2);
   const int O1 = A1 - p, O2 = A2 - p;
   const int lo1 = max(O1, 0), lo2 = max(O2, 0);
@@ -288,7 +294,7 @@ __device__ __forceinline__ void tile_stencil(const Src& src, const Coeff<T> (&cf
     soff[i] = e < nload ? (lo1 + r - O1) * e2 + (lo2 + cc - O2) : -1;
     goff[i] = e < nload ? (lo1 + r) * G2 + (lo2 + cc) : 0;
   }
-  const int c_begin = blockIdx.z * S.slab, c_end = min(c_begin + S.slab, L.n0);
+  const int c_begin = at.z * S.slab, c_end = min(c_begin + S.slab, L.n0);
   const int c_first = c_begin > 0 ? c_begin - 1 : 0;
 
   // plane g0's operands, copied without registers (cp.async) into its raw
@@ -300,10 +306,11 @@ __device__ __forceinline__ void tile_stencil(const Src& src, const Coeff<T> (&cf
     for (int r = 0; r < NR; ++r) {
       const T* from = src.raw(r);
       if (from == nullptr) continue;
+      const long long at_plane = src.plane_base(r, g0, base, P12);
 #pragma unroll
       for (int i = 0; i < kSlots; ++i)
         if (soff[i] >= 0)
-          __pipeline_memcpy_async(dst + r * PE + soff[i], from + base + goff[i], sizeof(T));
+          __pipeline_memcpy_async(dst + r * PE + soff[i], from + at_plane + goff[i], sizeof(T));
     }
   };
   auto form_plane = [&](int g0) {

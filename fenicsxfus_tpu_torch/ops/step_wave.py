@@ -6,8 +6,10 @@ Port of ``fenicsxfus_tpu/ops/pallas_step_wave.py`` (``try_separate_field``,
 stages of ``ops/stage.py`` (stage i reads the step state and the slopes
 kv_{i-1}, kv_{i-2}; the last one also kv0 and writes the step update), run as
 one launch of ``csrc/step_wave.cu``: a persistent grid takes (stage, axis-0
-slab, tile) work items in wavefront order and orders the stages through
-completion counters in device memory (``csrc/wave.cuh``).
+slab, (g1, g2) tile) work items in wavefront order, runs each as the tiled
+stencil of K2 (``csrc/tile.cuh``), orders the stages through completion
+counters in device memory and keeps the slopes in rings of a few slabs
+(``csrc/wave.cuh``); ``wave_plan`` shapes the launch.
 
 For the kinds whose dense operand is inv_m alone (linear, lossy) the model
 may pass inv_m separable, ``(a [G0], P [1, G1, G2])`` with inv_m[g] =
@@ -34,6 +36,8 @@ from .stage import (
     KIND_CODES,
     KIND_DENSE,
     KIND_FACET,
+    KIND_FIELDS,
+    KIND_RAW,
     FusedRKStage,
     check_facets,
     check_stage_fields,
@@ -41,7 +45,16 @@ from .stage import (
     stage_plain,
     stage_pointers,
 )
-from .stiffness import DTYPE_CODES, check_fields, check_launch, launch_args
+from .stiffness import (
+    DTYPE_CODES,
+    ITEMSIZE,
+    SMEM_TARGET,
+    TILE_NODES,
+    _tile_plan,
+    check_fields,
+    check_launch,
+    launch_args,
+)
 
 STAGES = 4
 # kinds that may take inv_m separable
@@ -160,6 +173,92 @@ def check_step_wave(kind, u0, v0, scal4, Fs, dense, facets, p):
     return exts, sep
 
 
+# ----------------------------------------------------------------- wave plan
+
+# K3's work item is one tile of csrc/tile.cuh (the K1/K2 tile, TILE_NODES,
+# halved to SMEM_TARGET as tile_plan does) over a slab of WAVE_SLAB cells; row
+# b of the wavefront holds stage s at slab b - WAVE_LAG*s; each slope ring
+# holds 3*WAVE_LAG + 1 + RING_SPARE slabs (csrc/wave.cuh: fewer than
+# 3*lag + 1 would let a slot be rewritten while a reader remains). The sizes
+# are the fastest of tools/wave_variants.py on the H100 (PERF.md): slabs of
+# 1, 2, 4 and 8 cells, lags of 1-3 slabs, rings of 7-12.
+WAVE_SLAB = 4
+WAVE_LAG = 2
+RING_SPARE = 1
+
+
+def min_ring(lag: int) -> int:
+    """The fewest slabs a slope ring may hold at a lag of ``lag`` slabs
+    between stages, unless it holds the whole lattice (csrc/wave.cuh)."""
+    return 3 * lag + 1
+
+
+def wave_plan(gdims, p: int, nf: int, dtype, nr=None, blocks: int = 0) -> dict:
+    """The launch shape of K3 on a [G0, G1, G2] lattice of degree p with
+    ``nf`` stencil fields of ``dtype`` formed from ``nr`` raw operands.
+
+    Returns ``tile_plan``'s keys for the item's tile and slab (``tile``,
+    ``slab`` = cells of an item along g0, ``halo``, ``threads``, ``smem``,
+    ``grid`` = (tiles along g2, tiles along g1, slabs)) and ``lag`` (rows of
+    the wavefront between stages), ``ring`` (slabs R of each slope ring, cut
+    to the slab count), ``ring_planes`` (R·slab·p + 1 lattice planes per
+    ring), ``blocks`` (of the persistent grid; 0: as many as can be
+    resident). The tile is not cut for the block count: the grid is
+    persistent. Raises ValueError for a ring below ``min_ring(lag)`` or a
+    plan a block cannot run."""
+    lag, ring = int(WAVE_LAG), min_ring(int(WAVE_LAG)) + int(RING_SPARE)
+    if lag < 1:
+        raise ValueError(f"the wavefront needs a lag of at least 1 slab, got {lag}")
+    if ring < min_ring(lag):
+        raise ValueError(f"a slope ring of {ring} slabs at lag {lag} would be rewritten while "
+                         f"a reader remains; it needs at least {min_ring(lag)}")
+    if int(blocks) != blocks or blocks < 0:
+        raise ValueError(f"blocks must be a block count >= 0, got {blocks}")
+    gdims = tuple(int(g) for g in gdims)
+    plan = dict(_tile_plan(gdims, int(p), int(nf), int(nr or nf), ITEMSIZE[dtype], TILE_NODES,
+                           int(WAVE_SLAB), SMEM_TARGET, 1))
+    nslab = plan["grid"][2]
+    ring = min(ring, nslab)
+    return dict(plan, lag=lag, ring=ring, ring_planes=ring * plan["slab"] * int(p) + 1,
+                blocks=int(blocks))
+
+
+def wave_plan_ints(plan: dict) -> ctypes.Array:
+    """The plan as the 11 ints of the C entry (csrc/wave.cuh::read_wave_plan):
+    t1, t2, slab, threads, smem bytes, grid x, y, z, lag, ring, blocks."""
+    return (ctypes.c_int * 11)(*plan["tile"], plan["slab"], plan["threads"], plan["smem"],
+                               *plan["grid"], plan["lag"], plan["ring"], plan["blocks"])
+
+
+def ring_planes(plan: dict, G0: int, p: int) -> np.ndarray:
+    """Where each lattice plane g0 of a slope lies in its ring (csrc/wave.cuh):
+    slab Z's plane g0 at (Z mod R)·S·p + g0 − Z·S·p, and plane G0 − 1 (the
+    last slab's extra plane) at R·S·p; int32, one entry per plane."""
+    sp, R = plan["slab"] * int(p), plan["ring"]
+    g0 = np.arange(int(G0))
+    Z = g0 // sp
+    out = (Z % R) * sp + g0 - Z * sp
+    out[-1] = R * sp
+    return out.astype(np.int32)
+
+
+_RING_TABLES: dict = {}
+
+
+def _ring_table(plan: dict, G0: int, p: int, device) -> torch.Tensor:
+    """``ring_planes`` on the device, kept per device and plan."""
+    key = (device, G0, p, plan["slab"], plan["ring"])
+    table = _RING_TABLES.get(key)
+    if table is None:
+        table = _RING_TABLES[key] = torch.as_tensor(ring_planes(plan, G0, p), device=device)
+    return table
+
+
+def ring_bytes(plan: dict, gdims, dtype) -> int:
+    """Device bytes of the three slope rings of a plan."""
+    return 3 * plan["ring_planes"] * int(gdims[1]) * int(gdims[2]) * ITEMSIZE[dtype]
+
+
 # ------------------------------------------------------ the sticky error word
 #
 # A dependency wait of the kernel that exceeds its bound sets a per-device
@@ -204,30 +303,33 @@ def step_wave_apply(kind, u0, v0, scal4, Fs, dense, facets, p, grid=0):
     """One RK4 step of ``kind`` on lattice fields [G0, G1, G2]: (u0, v0) ->
     (u1, v1), in new buffers. Arguments as ``step_wave_plain``; ``grid``:
     blocks of the launch (0: as many as can be resident; any count gives
-    the same result). CUDA tensors launch K3 (``csrc/step_wave.cu``) on the
-    current stream; CPU tensors run ``step_wave_plain``."""
+    the same result). CUDA tensors launch K3 (``csrc/step_wave.cu``, shaped
+    by ``wave_plan``) on the current stream, its slopes in three rings of
+    ``wave_plan``'s size (no field-sized slope buffer); CPU tensors run
+    ``step_wave_plain``."""
     exts, sep = check_step_wave(kind, u0, v0, scal4, Fs, dense, facets, p)
-    if int(grid) != grid or grid < 0:
-        raise ValueError(f"grid must be a block count >= 0, got {grid}")
+    nf = KIND_FIELDS[kind]
+    plan = wave_plan(u0.shape, p, nf, u0.dtype, nr=KIND_RAW[nf], blocks=grid)
     if u0.device.type == "cpu":
         return step_wave_plain(kind, u0, v0, scal4, Fs, dense, facets, p)
     from .._build import library
 
     lib = library()
     _poll_errors(block=False)
-    kv = [torch.empty_like(u0) for _ in range(STAGES - 1)]
+    rings = torch.empty((3, plan["ring_planes"]) + tuple(u0.shape[1:]), dtype=u0.dtype,
+                        device=u0.device)
     outs = (None, torch.empty_like(u0), torch.empty_like(v0))
-    ptrs, ext = stage_pointers(u0, v0, *kv, Fs, dense, facets, outs, exts)
-    workspace = torch.empty(1 + STAGES * ((u0.shape[0] - 1) // p), dtype=torch.int32,
-                            device=u0.device)
+    ptrs, ext = stage_pointers(u0, v0, *rings, Fs, dense, facets, outs, exts)
+    workspace = torch.empty(1 + STAGES * plan["grid"][2], dtype=torch.int32, device=u0.device)
+    table = _ring_table(plan, u0.shape[0], p, u0.device)
     err = _error_word(u0.device)
     gd, K1, stream, dev = launch_args(u0, p)
-    table = np.ascontiguousarray(scal4, dtype=np.float64)
+    scal = np.ascontiguousarray(scal4, dtype=np.float64)
     rc = lib.fus_step_wave(
         KIND_CODES[kind], DTYPE_CODES[u0.dtype], ptrs, ext, gd, p, K1,
-        table.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), table.shape[1], int(sep),
-        ctypes.c_void_p(workspace.data_ptr()), ctypes.c_void_p(err.data_ptr()), int(grid),
-        stream, dev,
+        scal.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), scal.shape[1], int(sep),
+        wave_plan_ints(plan), ctypes.c_void_p(table.data_ptr()),
+        ctypes.c_void_p(workspace.data_ptr()), ctypes.c_void_p(err.data_ptr()), stream, dev,
     )
     check_launch(lib, rc, "K3 step wave")
     step_wave_apply.launches[kind] += 1

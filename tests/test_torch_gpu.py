@@ -431,15 +431,34 @@ def _wave_args(kind, lat, rng, device, dg0, sep):
                 Fs=Fs, dense=dense, facets=facets, p=p)
 
 
+# K3 at p = 4 on the small grids, and on the tile grids (ragged, one cell
+# across, unit cells) at p = 1..8
+K3_CASES = [(grid, 4) for grid in GRIDS] + [(grid, p) for grid in TILE_GRIDS
+                                            for p in range(1, 9)]
+RINGS = ["default ring", "smallest ring"]
+
+
+def _use_ring(ring, monkeypatch):
+    """The smallest ring ``wave_plan`` accepts, of one-cell slabs: every
+    slot reused as early as the schedule allows, on every lattice of more
+    than 3·lag + 1 cells."""
+    if ring == "smallest ring":
+        monkeypatch.setattr(step_wave, "RING_SPARE", 0)
+        monkeypatch.setattr(step_wave, "WAVE_SLAB", 1)
+
+
+@pytest.mark.parametrize("ring", RINGS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("kind", sorted(KIND_FIELDS))
-@pytest.mark.parametrize("grid", GRIDS)
-def test_k3_matches_plain(grid, kind, dtype, cuda):
+@pytest.mark.parametrize("grid,degree", K3_CASES)
+def test_k3_matches_plain(grid, degree, kind, dtype, ring, cuda, monkeypatch):
     """K3 (a whole RK4 step in one launch) against ``step_wave_plain``:
     constant and DG-0 coefficients, and inv_m separable for linear and
-    lossy."""
-    lat = LatticeStiffness(grid, 4, (0.1, 0.14, 0.07), dtype)
-    rng = np.random.default_rng(len(kind))
+    lossy; at the default ring and the smallest sound one."""
+    _use_ring(ring, monkeypatch)
+    h = (0.1, 0.14, 0.07) if grid in GRIDS else (1.0, 1.0, 1.0)
+    lat = LatticeStiffness(grid, degree, h, dtype)
+    rng = np.random.default_rng(len(kind) + degree)
     forms = [(False, False), (True, False)]
     forms += [(False, True), (True, True)] if kind in ("linear", "lossy") else []
     for dg0, sep in forms:
@@ -453,10 +472,11 @@ def test_k3_matches_plain(grid, kind, dtype, cuda):
             assert _rel(a, b) < TOLS[dtype]
 
 
-def test_k3_result_does_not_depend_on_the_grid(cuda):
+def test_k3_result_does_not_depend_on_the_grid(cuda, monkeypatch):
     """The ticket order makes the step independent of how many blocks run
     it: 1 block, a few, as many as are resident (0), and more than there
-    are work items give u1, v1 bit for bit."""
+    are work items give u1, v1 bit for bit, at the smallest sound ring."""
+    _use_ring("smallest ring", monkeypatch)
     lat = LatticeStiffness((20, 9, 9), 4, (0.1, 0.14, 0.07), torch.float32)
     args = _wave_args("focused", lat, np.random.default_rng(3), cuda, True, False)
     ref = step_wave_apply(**args, grid=0)
@@ -464,6 +484,25 @@ def test_k3_result_does_not_depend_on_the_grid(cuda):
         got = step_wave_apply(**args, grid=grid)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     step_wave_check()
+
+
+def test_k3_refused_plan_raises(cuda, monkeypatch):
+    """A plan the C entry refuses (a ring below 3·lag + 1 slabs, or a grid
+    that leaves nodes without an owner) raises, counts no launch, and
+    leaves the next launch right."""
+    lat = LatticeStiffness((40, 5, 5), 4, (1.0, 1.0, 1.0), torch.float32)
+    args = _wave_args("focused", lat, np.random.default_rng(6), cuda, False, False)
+    plan = step_wave.wave_plan
+    for bad in ({"ring": 3 * step_wave.WAVE_LAG}, {"grid": (1, 1, 1)}):
+        monkeypatch.setattr(step_wave, "wave_plan", lambda *a, **k: dict(plan(*a, **k), **bad))
+        before = step_wave_apply.launches["focused"]
+        with pytest.raises(RuntimeError, match="launch failed"):
+            step_wave_apply(**args)
+        assert step_wave_apply.launches["focused"] == before
+        monkeypatch.undo()
+    got = step_wave_apply(**args)
+    step_wave_check()
+    assert _rel(got[0], step_wave_plain(**args)[0]) < TOLS[torch.float32]
 
 
 def test_k3_error_word_raises(cuda):
