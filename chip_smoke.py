@@ -39,10 +39,13 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    kernel alone and the pair against K1's plain version, fp32, on (9,5,7)
    at p = 2, 3, 4 (constant and DG-0 coefficients, 1 and 2 fields), on
    (41,1,1) and on the 104³ headline lattice with CUDA-event timings;
-10. K5a/K5b (the two-kernel RK stage) against their plain versions for all
-   four kinds, a non-final and a final stage, at (9,5,7) (constant and
-   DG-0), (41,1,1), (81,1,1), the HITU lattice (timed for every kind) and,
-   for ``linear``, the headline lattice (timed);
+10. K5a/K5b (the two-kernel RK stage: K5a the axis-0 column march of
+   ``csrc/column.cuh``, K5b the in-plane plane tile of ``csrc/plane.cuh``,
+   shaped by ``ops/stage_ab.py::column_plan``/``plane_plan``) against their
+   plain versions for all four kinds, a non-final and a final stage, at
+   (9,5,7) (constant and DG-0), (41,1,1), (81,1,1), the HITU lattice (timed
+   for every kind) and, for ``linear``, the headline lattice (timed), with
+   each plan and each timing's share of its bound;
 11. the two-kernel pipeline's main path, with ``FUS_STAGE_V3=0`` and
    ``FUS_V3=0`` set for the phase: HITU W-H101-WATER at the driver defaults
    through K5a/K5b ``focused`` (peak held against the JAX package's run and
@@ -54,7 +57,8 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    at (9,5,7) (constant and DG-0), (41,1,1), (81,1,1), the HITU lattice
    (timed for every kind) and, for ``linear``, the headline (timed), inv_m
    dense and separable for linear and lossy, and against four K2 launches
-   of the same step, bit for bit (every kernel rounds alike); the
+   of the same step, bit for bit (every kernel rounds alike), as are four
+   K5a -> K5b pairs; the
    step at the HITU lattice on 1 block against the default grid, bit for
    bit; the plan (tile, slab, lag, ring of the slopes) and the share of
    the bound at the HITU lattice and the headline; then HITU W-H101-WATER
@@ -177,6 +181,18 @@ def share_text(bound: dict, ms: float) -> str:
     """The bound of a timed call and its share of the call's time."""
     return (f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), bound/ms "
             f"{bound['bound_ms'] / ms:.3f}")
+
+
+def split_plan_line(gdims, kind: str) -> str:
+    """The fp32 plans of K5a (column march) and K5b (plane tile) of
+    ``kind`` on a p = 4 lattice."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.stage import KIND_FIELDS
+    from fenicsxfus_tpu_torch.ops.stage_ab import column_plan, plane_plan
+
+    return (f"K5a column plan {column_plan(gdims, 4)}, K5b plane plan "
+            f"{plane_plan(gdims, 4, KIND_FIELDS[kind], torch.float32)}")
 
 
 def plan_line(gdims, p: int, nf: int, nr=None) -> str:
@@ -922,7 +938,10 @@ def phase_k5(device, card) -> dict:
                     where = "headline" if grid == headline else "HITU lattice"
                     for k, (ms, pms) in times.items():
                         say(f"[10] {k} {kind} {where} {stage}: kernel {ms:.3f} ms, plain "
-                            f"{pms:.3f} ms (median of 10, CUDA events; {card})")
+                            f"{pms:.3f} ms, {share_text(stage_floor(args, k), ms)} (median of "
+                            f"10, CUDA events; {card})")
+                    if not final:
+                        say(f"[10] {kind} {where}: {split_plan_line(lat.gdims, kind)}")
                     # the entry of the kernels line: the shape of the kind's
                     # main path (the headline for linear), a non-final stage
                     if not final and (grid == headline or kind != "linear"):
@@ -1017,6 +1036,7 @@ def phase_k3(device, card) -> dict:
 
     from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
     from fenicsxfus_tpu_torch.ops.stage import KIND_FIELDS, stage_apply
+    from fenicsxfus_tpu_torch.ops.stage_ab import stage_ab_apply
     from fenicsxfus_tpu_torch.ops.step_wave import (
         SEP_KINDS, step_wave_apply, step_wave_check, step_wave_plain,
     )
@@ -1042,19 +1062,24 @@ def phase_k3(device, card) -> dict:
                 got = step_wave_apply(**args)
                 ref = step_wave_plain(**args)
                 k2 = step_wave_plain(**args, stage_fn=stage_apply)
+                k5 = step_wave_plain(**args, stage_fn=stage_ab_apply)
                 step_wave_check()
                 torch.cuda.synchronize()
                 worst = max(rel_err(a, b) for a, b in zip(got, ref))
                 vs_k2 = max(rel_err(a, b) for a, b in zip(got, k2))
                 same = all(torch.equal(a, b) for a, b in zip(got, k2))
+                same5 = all(torch.equal(a, b) for a, b in zip(k5, k2))
                 form = ("DG-0" if dg0 else "const") + (", inv_m separable" if sep else "")
                 say(f"[12] K3 {kind} grid={grid} p=4 {form}: max|d|/max|ref| = {worst[0]:.3e}; "
-                    f"against four K2 launches {vs_k2[0]:.3e} (bit for bit: {same})")
+                    f"against four K2 launches {vs_k2[0]:.3e} (bit for bit: {same}); four "
+                    f"K5a -> K5b pairs against them bit for bit: {same5}")
                 if not worst[0] <= TOL:
                     raise AssertionError(
                         f"K3 {kind} disagrees with its plain version: {worst[0]:.3e} > {TOL}")
                 if not same:  # every kernel rounds the per-node arithmetic alike
                     raise AssertionError(f"K3 {kind} differs from four K2 launches")
+                if not same5:
+                    raise AssertionError(f"K5a -> K5b {kind} differs from K2")
                 if grid in (HITU_GRID, headline):
                     ms = cuda_median_ms(lambda: step_wave_apply(**args))
                     pms = cuda_median_ms(lambda: step_wave_plain(**args))
@@ -1071,7 +1096,7 @@ def phase_k3(device, card) -> dict:
                     if main_form and (grid == headline or kind != "linear"):
                         out[kind] = {"max_abs_err": worst[1], "ms": ms, "plain_ms": pms,
                                      "k2_ms": k2ms, **bound}
-                del args, got, ref, k2
+                del args, got, ref, k2, k5
                 torch.cuda.synchronize()
 
     # the grid-size check: 1 block against the default grid, bit for bit

@@ -115,8 +115,11 @@ def library() -> ctypes.CDLL:
     lib.fus_stiffness_axes12.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _P, _LLP, _I, _DP, _P,
                                          _I]
     lib.fus_stage.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _INTP, _P, _I]
-    lib.fus_stage_a.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _P, _I]
-    lib.fus_stage_b.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _P, _I]
+    # K5a and K5b take their plans (ops/stage_ab.py::column_plan, plane_plan)
+    # as 4 and 8 ints
+    lib.fus_stage_a.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _INTP, _P, _I]
+    lib.fus_stage_b.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _INTP, _P,
+                                _I]
     # K3 takes its plan (ops/step_wave.py::wave_plan) as 11 ints
     lib.fus_step_wave.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _INTP, _P,
                                   _P, _P, _P, _I]

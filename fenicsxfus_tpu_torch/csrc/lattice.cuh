@@ -1,9 +1,10 @@
 // Shared device code of the lattice kernels. The one-thread-per-node
-// stencil ``axis_at`` below serves K4a/K4b (stiffness_ab.cu) and K5a/K5b
-// (stage_ab.cu) only; K1 (stiffness.cu), K2 (stage.cu) and K3
-// (step_wave.cu) run the shared-memory tile of tile.cuh, which builds on the
-// per-cell sums here (``cell_sum``, ``coeff_dot``, ``coeff_acc``) so that
-// every kernel does the same arithmetic per node.
+// stencil ``axis_at`` below serves K4a/K4b (stiffness_ab.cu) only; K1
+// (stiffness.cu), K2 (stage.cu) and K3 (step_wave.cu) run the shared-memory
+// tile of tile.cuh, K5a the column march of column.cuh and K5b the plane
+// tile of plane.cuh, which all build on the per-cell sums here
+// (``cell_sum``, ``coeff_dot``, ``coeff_acc``) so that every kernel does the
+// same arithmetic per node.
 //
 // Fields live on the 3D GLL lattice [G0, G1, G2], Ga = na*p + 1, row-major
 // with g2 fastest. The stiffness of one field x with packed coefficient F is
@@ -69,7 +70,7 @@ inline K1Mat<T> make_k1(const double* K1, int p) {
 // what it sees there depends on the kernel around the sum (an unrolled
 // cell, a branch at the interface); so every sum below says which products
 // it fuses (fma_rn) and which it rounds on their own (mul_rn, add_rn), and
-// the tile of K1/K2/K3 and the axis_at of K4/K5 round alike.
+// the tile of K1/K2/K3, the walks of K5 and the axis_at of K4 round alike.
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
@@ -200,7 +201,7 @@ __device__ __forceinline__ T axis_at(const Src& src, const Coeff<T> (&cf)[NF],
 }
 
 // y + the axis-1 and axis-2 terms at a node: the second kernel of the
-// two-kernel split (K4b, K5b), y being the first kernel's axis-0 term.
+// two-kernel stiffness (K4b), y being the first kernel's axis-0 term.
 template <typename T, int NF, typename Src>
 __device__ __forceinline__ T axes12_at(const Src& src, const Coeff<T> (&cf)[NF],
                                        const Lattice& L, const K1Mat<T>& K, long long node,

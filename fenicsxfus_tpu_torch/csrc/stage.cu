@@ -31,7 +31,7 @@
 // un (and vn) there once into shared memory, and runs the three axis terms
 // from it; the one-thread-per-node kernel that came before formed them again
 // at every one of about 19 neighbour reads per node. The epilogue
-// (stage.cuh::stage_epilogue, the tail of stage_finish) takes un and vn
+// (stage.cuh::stage_epilogue) takes un and vn
 // from the tile and reads only its other operands at the node: inv_m, or m0
 // and d2, the facet strips on box-face nodes, and on the final stage u0, v0
 // and the slopes.

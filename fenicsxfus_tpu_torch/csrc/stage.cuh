@@ -3,9 +3,9 @@
 // axis-0 / axes-1,2 boundary) and K3 (step_wave.cu, the four stages of an
 // RK4 step in one launch). The kinds, the argument struct and its
 // unpacking from the C entries' operand slots, the stage fields (formed
-// once per loaded node by the tile of K2 and K3, at each stencil read by K5),
-// the packed facet terms, the kind's epilogue and the final stage's step
-// update live here once.
+// once per loaded node by every kernel: the tiles of K2, K3 and K5b, the
+// column march of K5a), the packed facet terms, the kind's epilogue and the
+// final stage's step update live here once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,10 +71,9 @@ struct StageArgs {
   T* yA;  // axis-0 partial: written by K5a, read by K5b; unused by K2
 };
 
-// How a kernel reads the slopes kvp, kvpp and prev. K2 and K5 read slopes
-// that an earlier launch wrote: read-only for the whole kernel, so through
-// the read-only cache (ld.global.nc) in the stencil and plainly at the node.
-// K3 (wave.cuh) reads slopes that other blocks of the same launch wrote
+// How a kernel reads the slopes kvp, kvpp and prev at the node. K2 and K5
+// read slopes that an earlier launch wrote: read-only for the whole kernel,
+// so through the read-only cache (ld.global.nc). K3 (wave.cuh) reads slopes that other blocks of the same launch wrote
 // and released, so always plainly (the tile's cp.async copies, PlainLoad at
 // the node): a plain (weak) load ordered after the block's acquire observes
 // the released writes (PTX memory model), while ld.global.nc is valid only
@@ -95,8 +94,9 @@ struct PlainLoad {
 // The stage fields at one node, un = u0 + alpha*v0 [+ beta*kvpp] and
 // vn = v0 [+ alpha*kvp], each bracket present with its slope; ``kvpp()``
 // and ``kvp()`` read the slope and are called only then. Every kernel forms
-// them here (the tile of K2 and K3 from its shared copies, K5 at each stencil
-// read and at the node), with the fma written out, so they round alike.
+// them here (the tiles of K2, K3 and K5b from their shared copies, K5a from
+// its registers, linear's vn at the node), with the fma written out, so they
+// round alike.
 template <typename T, typename S>
 __device__ __forceinline__ T form_un(T u0, T v0, T alpha, T beta, bool has_kvpp,
                                      const S& kvpp) {
@@ -108,9 +108,9 @@ __device__ __forceinline__ T form_vn(T v0, T alpha, bool has_kvp, const S& kvp) 
   return has_kvp ? fma_rn(alpha, kvp(), v0) : v0;
 }
 
-// (un, vn) formed at each read; NF = 1 reads un only. u0 and v0 are
-// read-only in every launch; the slopes are read through Ld.
-template <typename T, int NF, typename Ld = ReadOnlyLoad>
+// The stencil's source of (un, vn) from the raw operands; NF = 1 forms un
+// only.
+template <typename T, int NF>
 struct StageFields {
   const T *u0, *v0, *kvp, *kvpp;
   T alpha, beta;
@@ -123,12 +123,9 @@ struct StageFields {
     if constexpr (NF > 1) r.v[1] = form_vn(v, alpha, kvp != nullptr, [&] { return slope(1); });
     return r;
   }
-  __device__ __forceinline__ Vals<T, NF> operator()(long long i) const {
-    const Ld ld{};
-    return form(__ldg(u0 + i), __ldg(v0 + i), [&](int s) { return ld(s ? kvp : kvpp, i); });
-  }
-  // For the tile (tile.cuh), which copies the operands into shared memory
-  // first: the NR raw operand arrays u0, v0, kvpp and (two fields) kvp, where
+  // For the stencils (tile.cuh, column.cuh, plane.cuh), which copy or load
+  // the operands first: the NR raw operand arrays u0, v0, kvpp and (two
+  // fields) kvp, where
   // their plane g0 starts (base = g0*P12: they are lattice fields), and the
   // fields formed from a node's copies q[r * RE].
   static constexpr int NR = NF > 1 ? 4 : 3;
@@ -143,8 +140,8 @@ struct StageFields {
   }
 };
 
-template <typename T, int KIND, typename Ld = ReadOnlyLoad>
-__device__ __forceinline__ StageFields<T, KindTraits<KIND>::NF, Ld> stage_fields(
+template <typename T, int KIND>
+__device__ __forceinline__ StageFields<T, KindTraits<KIND>::NF> stage_fields(
     const StageArgs<T>& a) {
   return {a.u0, a.v0, a.kvp, a.kvpp, a.alpha, a.beta};
 }
@@ -234,24 +231,6 @@ __device__ __forceinline__ void stage_epilogue(const StageArgs<T>& a, const Latt
   for (int i = 0; i < ns; ++i) v1 = fma_rn(a.db[i], kvs[i], v1);
   a.u_out[node] = u1;
   a.v_out[node] = v1;
-}
-
-// The rest of a stage at one node once its assembled stiffness ``acc`` is
-// known (K5b): the stage fields un and vn formed at the node, then
-// stage_epilogue. The slopes and (in stage_epilogue) the dense operands are
-// read through Ld.
-template <typename T, int KIND, bool SEP = false, typename Ld = PlainLoad>
-__device__ __forceinline__ void stage_finish(const StageArgs<T>& a, const Lattice& L,
-                                             long long node, int g0, int g1, int g2, T acc) {
-  const Ld ld{};
-  const T v0 = a.v0[node];
-  const T vn = form_vn(v0, a.alpha, a.kvp != nullptr, [&] { return ld(a.kvp, node); });
-  T un = 0;
-  if constexpr (KindTraits<KIND>::NONLINEAR)
-    un = form_un(a.u0[node], v0, a.alpha, a.beta, a.kvpp != nullptr,
-                 [&] { return ld(a.kvpp, node); });
-  stage_epilogue<T, KIND, SEP, Ld>(a, L, node, node, g0, g1, g2, acc, un, [&] { return vn; },
-                                   [&](int i) { return ld(a.dense[i], node); });
 }
 
 // ------------------------------------------------------------------- host

@@ -2,7 +2,7 @@
 // (step_wave.cu, one work item at a time: wave.cuh).
 //
 // Replaces, for K1, K2 and K3, the one-thread-per-node stencil of
-// lattice.cuh::axis_at (which K4 and K5 still run). Its TPU counterparts
+// lattice.cuh::axis_at (which K4 still runs). Its TPU counterparts
 // are the window walks of fenicsxfus_tpu/ops/pallas_v3.py::apply_v3 and
 // ops/pallas_stage_v3.py::_stage_call: they form the stage fields once per
 // window row in VMEM, keep the N planes of axis 0 resident, and carry the

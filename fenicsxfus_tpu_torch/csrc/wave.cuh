@@ -174,7 +174,7 @@ struct WaveArgs {
 // The stage fields of an item (stage.cuh::StageFields): u0 and v0 at their
 // lattice planes, the slopes kvpp and kvp at their ring planes.
 template <typename T, int NF>
-struct RingFields : StageFields<T, NF, PlainLoad> {
+struct RingFields : StageFields<T, NF> {
   const WaveRing& ring;
   __device__ __forceinline__ long long plane_base(int r, int g0, long long base,
                                                   long long P12) const {
@@ -226,7 +226,7 @@ __device__ __forceinline__ void wave_item(const StageArgs<T>& a, const WaveRing&
                                           const Coeff<T> (&cf)[KindTraits<KIND>::NF],
                                           const Lattice& L, const K1Mat<T>& K,
                                           const TileShape& S, const dim3& at) {
-  const RingFields<T, KindTraits<KIND>::NF> src{stage_fields<T, KIND, PlainLoad>(a), ring};
+  const RingFields<T, KindTraits<KIND>::NF> src{stage_fields<T, KIND>(a), ring};
   const long long P12 = L.G1 * L.G2;
   const int first = (int)at.z * S.slab * L.p, last = (int)L.G0 - 1;  // the slab's first plane
   const WaveOut<T, KIND, SEP> out{a, L, (ring.plane(first) - first) * P12,

@@ -21,7 +21,7 @@ from fenicsxfus_tpu_torch import (
 )
 from fenicsxfus_tpu_torch.convert import state_from_numpy
 from fenicsxfus_tpu_torch.models.common import explicit_tables, make_scan_from_step
-from fenicsxfus_tpu_torch.ops import stage, stiffness, step_wave
+from fenicsxfus_tpu_torch.ops import stage, stage_ab, stiffness, step_wave
 from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
 from fenicsxfus_tpu_torch.ops.stage import (
     KIND_DENSE,
@@ -307,6 +307,83 @@ def test_k5_matches_plain(grid, kind, present, final, dtype, cuda):
         for a, b, c in (zip(got, ref, whole) if final else [(got, ref, whole)]):
             assert _rel(a, b) < TOLS[dtype]
             assert _rel(a, c) < TOLS[dtype]
+
+
+# K5a's column march (csrc/column.cuh) and K5b's plane tile (csrc/plane.cuh)
+# at p = 1..8: the small lattice of the tests above, a lattice no tile
+# divides, unit cells that the main path's fp32 p = 4 tile fits, and a
+# channel one cell across; under the default plans, the main path's (the
+# minimum block count set to 1, so the starting sizes stay) and small
+# general plans (many blocks, short slabs and runs, a tile of one or two
+# cells)
+SPLIT_GRIDS = [(GRID, (0.1, 0.14, 0.07)), ((13, 11, 17), (1.0, 1.0, 1.0)),
+               ((6, 4, 16), (1.0, 1.0, 1.0)), ((41, 1, 1), (1.0, 1.0, 1.0))]
+SPLIT_PLANS = ["default", "main-path", "general"]
+
+
+def _use_split_plan(plan, monkeypatch):
+    if plan != "default":
+        monkeypatch.setattr(stage_ab, "MIN_BLOCKS", 1)
+    if plan == "general":
+        monkeypatch.setattr(stage_ab, "COLUMN_THREADS", 64)
+        monkeypatch.setattr(stage_ab, "COLUMN_SLAB", 3)
+        monkeypatch.setattr(stage_ab, "PLANE_TILE", (8, 16))
+        monkeypatch.setattr(stage_ab, "PLANE_RUN", 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("degree", range(1, 9))
+@pytest.mark.parametrize("kind", sorted(KIND_FIELDS))
+@pytest.mark.parametrize("plan", SPLIT_PLANS)
+@pytest.mark.parametrize("grid,h", SPLIT_GRIDS)
+def test_k5_walks_match_plain(grid, h, plan, kind, degree, dtype, cuda, monkeypatch):
+    """K5a and K5b against their plain versions (K5b on K5a's output) for a
+    middle and a final stage, constant and DG-0 coefficients."""
+    _use_split_plan(plan, monkeypatch)
+    lat = LatticeStiffness(grid, degree, h, dtype)
+    rng = np.random.default_rng(degree + 10 * len(kind))
+    for (present, final), dg0 in ((STAGES[2], False), (STAGES[6], True)):
+        args = _stage_args(kind, lat, rng, cuda, present, final, dg0)
+        _, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, _ = args
+        before = stage_a_apply.launches[kind], stage_b_apply.launches[kind]
+        yA = stage_a_apply(kind, u0, v0, kvp, kvpp, Fs, scal, p)
+        assert _rel(yA, stage_a_plain(kind, u0, v0, kvp, kvpp, Fs, scal, p)) < TOLS[dtype]
+        got = stage_b_apply(kind, u0, v0, kvp, kvpp, prev, yA, Fs, dense, facets, scal, p, final)
+        assert (stage_a_apply.launches[kind], stage_b_apply.launches[kind]) == (
+            before[0] + 1, before[1] + 1)
+        ref = stage_b_plain(kind, u0, v0, kvp, kvpp, prev, yA, Fs, dense, facets, scal, p, final)
+        for a, b in (zip(got, ref) if final else [(got, ref)]):
+            assert _rel(a, b) < TOLS[dtype]
+
+
+def test_k5_refused_plan_raises(cuda, monkeypatch):
+    """A K5a plan the C entry refuses (a grid that leaves columns or cells
+    without an owner) and K5b plans the C entry or the card refuses (a grid
+    short of the planes, more shared memory than a block may have) raise,
+    count no launch, and leave the next launch right."""
+    lat = LatticeStiffness(GRID, 4, (1.0, 1.0, 1.0), torch.float32)
+    args = _stage_args("focused", lat, np.random.default_rng(5), cuda, (1, 1, 0), False, True)
+    _, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final = args
+    yA = stage_a_apply("focused", u0, v0, kvp, kvpp, Fs, scal, p)
+    column, plane = stage_ab.column_plan, stage_ab.plane_plan
+    for bad in ({"grid": (1, 1)}, {"columns": 64}):
+        monkeypatch.setattr(stage_ab, "column_plan", lambda *a, **k: dict(column(*a, **k), **bad))
+        before = stage_a_apply.launches["focused"]
+        with pytest.raises(RuntimeError, match="launch failed"):
+            stage_a_apply("focused", u0, v0, kvp, kvpp, Fs, scal, p)
+        assert stage_a_apply.launches["focused"] == before
+        monkeypatch.undo()
+    for bad in ({"grid": (1, 1, 1)}, {"smem": stiffness.SMEM_MAX + 8192}):
+        monkeypatch.setattr(stage_ab, "plane_plan", lambda *a, **k: dict(plane(*a, **k), **bad))
+        before = stage_b_apply.launches["focused"]
+        with pytest.raises(RuntimeError, match="launch failed"):
+            stage_b_apply(*args[:6], yA, *args[6:])
+        assert stage_b_apply.launches["focused"] == before
+        monkeypatch.undo()
+    ref = stage_plain(*args)
+    got = stage_b_apply(*args[:6], stage_a_apply("focused", u0, v0, kvp, kvpp, Fs, scal, p),
+                        *args[6:])
+    assert _rel(got, ref) < 1e-5
 
 
 def test_wrappers_refuse_bad_cuda_input(cuda):

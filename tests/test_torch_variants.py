@@ -1,5 +1,5 @@
 """The kernel variant tools (``fenicsxfus_tpu_torch/tools/tile_variants.py``,
-``wave_variants.py``) on the CPU: every change of every variant finds its
+``wave_variants.py``, ``split_variants.py``) on the CPU: every change of every variant finds its
 text exactly once in the committed sources, so each variant builds the
 design it names. Building and timing them needs the card."""
 
@@ -10,12 +10,14 @@ import pytest
 
 TOOLS = Path(__file__).resolve().parents[1] / "fenicsxfus_tpu_torch" / "tools"
 sys.path.insert(0, str(TOOLS))
+import split_variants  # noqa: E402
 import tile_variants  # noqa: E402
 import variants  # noqa: E402
 import wave_variants  # noqa: E402
 
 CASES = [(name, changes) for name, changes in tile_variants.SOURCE_VARIANTS.items()] + [
-    (name, changes) for name, changes in wave_variants.VARIANTS.items()]
+    (name, changes) for name, changes in wave_variants.VARIANTS.items()] + [
+    (name, changes) for name, changes in split_variants.SOURCE_VARIANTS.items()]
 
 
 @pytest.mark.parametrize("name,changes", CASES, ids=[c[0] for c in CASES])
