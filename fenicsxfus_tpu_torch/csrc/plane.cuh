@@ -21,23 +21,21 @@
 //    an interface those of cell c - 1: p nodes below the tile and 1 above,
 //    so a shared plane spans t + p + 1 nodes per axis, clipped to the
 //    lattice.
-//  - The walk, one thread per (g1, g2) column, in steps of kPlaneDepth
-//    planes. Each thread copies its nodes of the step's raw operands global
-//    -> shared with cp.async (the same nodes in every plane, so a thread
-//    only ever reads its own copies before the barrier), forms the stage
-//    fields there once per node into the field slots of the step's parity,
-//    starts the copies of the next step into the other parity's raw slots,
-//    and after one __syncthreads sums its column's node of each plane of the
-//    step from the field slots: start value, + axis 1, + axis 2
+//  - The walk, one thread per (g1, g2) column, plane by plane. Each thread
+//    copies its nodes of the plane's raw operands global -> shared with
+//    cp.async (the same nodes in every plane, so a thread only ever reads
+//    its own copies before the barrier), forms the stage fields there once
+//    per node into one of two field planes, starts the copies of the next
+//    plane into the other raw buffer, and after one __syncthreads sums its
+//    node from the field plane: start value, + axis 1, + axis 2
 //    (tile.cuh::ColumnAxis::term, the tile's arithmetic), then the output
 //    functor with what it read before the barrier (the output operands and
-//    the F1, F2 coefficients). The parities alternate, so one barrier per
-//    step suffices: a thread writes a field slot only after every thread
-//    has passed the barrier that ended the sums read from it.
+//    the F1, F2 coefficients). The field planes alternate, so one barrier
+//    per plane suffices: a thread writes a field plane only after every
+//    thread has passed the barrier that ended the sums read from it.
 //
-// Shared memory: 2 x kPlaneDepth x (NF fields + NR raw operands) planes with
-// halo and K1, against tile.cuh's N x (NF + NR): at p = 4, depth 1 and the
-// same tile 2/5 of it.
+// Shared memory: 2 x (NF fields + NR raw operands) planes with halo and K1,
+// against tile.cuh's N x (NF + NR): at p = 4 and the same tile 2/5 of it.
 // MAIN fixes p = 4 and the tile (kPlaneMainT1 x kPlaneMainT2) at compile
 // time; otherwise they are read at run time.
 //
@@ -56,10 +54,8 @@
 namespace fus {
 
 constexpr int kPlaneMaxThreads = 512;
-constexpr int kPlaneMinBlocks = 1;  // __launch_bounds__: blocks of kPlaneMaxThreads per SM
-constexpr int kPlaneDepth = 1;  // planes a block forms and sums between two barriers
 // The main paths' tile (p = 4, fp32: the HITU lattice and the headline).
-constexpr int kPlaneMainT1 = 16, kPlaneMainT2 = 32;
+constexpr int kPlaneMainT1 = 8, kPlaneMainT2 = 32;
 
 // Owned nodes of a tile along g1 and g2 (whole cells), planes of a run.
 struct PlaneShape {
@@ -72,12 +68,12 @@ struct PlanePlan {
   dim3 grid;  // tiles along g2, tiles along g1, runs of planes
 };
 
-// Dynamic shared memory of a plane tile: two steps of kPlaneDepth planes of
-// nf fields and of their nr raw operands, spanning t + p + 1 nodes per axis,
-// and K1 (ops/stage_ab.py::plane_smem_bytes).
+// Dynamic shared memory of a plane tile: two planes of nf fields and two of
+// nr raw operands, spanning t + p + 1 nodes per axis, and K1
+// (ops/stage_ab.py::plane_smem_bytes).
 inline long long plane_smem_bytes(int t1, int t2, int p, int nf, int nr, int tsize) {
   const long long N = p + 1, e1 = t1 + p + 1, e2 = t2 + p + 1;
-  return (2 * kPlaneDepth * (nf + nr) * e1 * e2 + N * N) * tsize;
+  return (2 * (nf + nr) * e1 * e2 + N * N) * tsize;
 }
 
 // The plan from the C entries' 8 ints [t1, t2, planes, threads, smem bytes,
@@ -146,10 +142,9 @@ __device__ __forceinline__ void plane_stencil(const Src& src, const Coeff<T> (&c
   const long long P12 = L.G1 * L.G2;
   const int e2 = t2 + p + 1, PE = (t1 + p + 1) * e2;
   extern __shared__ __align__(16) unsigned char plane_smem[];
-  constexpr int SLOTS = 2 * kPlaneDepth;  // planes of two steps
-  T* fields = reinterpret_cast<T*>(plane_smem);  // [SLOTS][NF][e1][e2]: the formed planes
-  T* raw = fields + SLOTS * NF * PE;              // [SLOTS][NR][e1][e2]: their operands
-  T* Kw = raw + SLOTS * NR * PE;                  // [N][N]
+  T* fields = reinterpret_cast<T*>(plane_smem);  // [2][NF][e1][e2]: the formed planes
+  T* raw = fields + 2 * NF * PE;                  // [2][NR][e1][e2]: their operands
+  T* Kw = raw + 2 * NR * PE;                      // [N][N]
   for (int i = threadIdx.x; i < N * N; i += nthreads) Kw[i] = K.w[i];
 
   // owned columns [A, E) per axis, loaded nodes [lo, min(E + 1, G)), and
@@ -174,9 +169,9 @@ __device__ __forceinline__ void plane_stencil(const Src& src, const Coeff<T> (&c
   const int g_begin = at.z * S.planes, g_end = min(g_begin + S.planes, (int)L.G0);
 
   // the operands of plane g0, copied without registers (cp.async) into raw
-  // slot s; each thread copies, and later forms, its own nodes of the plane
-  auto copy_plane = [&](int g0, int s) {
-    T* dst = raw + s * NR * PE;
+  // buffer b; each thread copies, and later forms, its own nodes of the plane
+  auto copy_plane = [&](int g0, int b) {
+    T* dst = raw + b * NR * PE;
     const long long base = (long long)g0 * P12;
 #pragma unroll
     for (int r = 0; r < NR; ++r) {
@@ -189,9 +184,9 @@ __device__ __forceinline__ void plane_stencil(const Src& src, const Coeff<T> (&c
           __pipeline_memcpy_async(dst + r * PE + soff[i], from + at_plane + goff[i], sizeof(T));
     }
   };
-  auto form_plane = [&](int s) {
-    const T* q = raw + s * NR * PE;
-    T* d = fields + s * NF * PE;
+  auto form_plane = [&](int b) {
+    const T* q = raw + b * NR * PE;
+    T* d = fields + b * NF * PE;
 #pragma unroll
     for (int i = 0; i < kSlots; ++i)
       if (soff[i] >= 0) {
@@ -205,46 +200,32 @@ __device__ __forceinline__ void plane_stencil(const Src& src, const Coeff<T> (&c
   ColumnAxis<T, NF, 2> axis2;
   axis1.init(cf, L, g1, g2, p, col, e2);
   axis2.init(cf, L, g1, g2, p, col, e2);
-  constexpr int D = kPlaneDepth;
-#pragma unroll
-  for (int d = 0; d < D; ++d)
-    if (g_begin + d < g_end) copy_plane(g_begin + d, d);
+  copy_plane(g_begin, 0);
   __pipeline_commit();
-  // a step: the D planes [g, g + D) in slots b*D + d, b the step's parity
-  for (int g = g_begin, b = 0; g < g_end; g += D, b ^= 1) {
-    const long long node = (long long)g * P12 + (long long)g1 * G2 + g2;
-    // each node's output operands and coefficients, in flight over the barrier
-    typename Out::Pre pre[D];
-    typename ColumnAxis<T, NF, 1>::Coef q1[D];
-    typename ColumnAxis<T, NF, 2>::Coef q2[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (active && g + d < g_end) {
-        pre[d] = out.prefetch(node + d * P12);
-        q1[d] = axis1.coeffs(g + d, cf, L);
-        q2[d] = axis2.coeffs(g + d, cf, L);
-      }
-    __pipeline_wait_prior(0);  // this thread's copies of the step's planes
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (g + d < g_end) form_plane(b * D + d);
-    if (g + D < g_end) {  // the next step's copies, in flight while this one is summed
-#pragma unroll
-      for (int d = 0; d < D; ++d)
-        if (g + D + d < g_end) copy_plane(g + D + d, (b ^ 1) * D + d);
+  for (int g0 = g_begin, b = 0; g0 < g_end; ++g0, b ^= 1) {
+    const long long node = (long long)g0 * P12 + (long long)g1 * G2 + g2;
+    // the node's output operands and coefficients, in flight over the barrier
+    typename Out::Pre pre;
+    typename ColumnAxis<T, NF, 1>::Coef q1;
+    typename ColumnAxis<T, NF, 2>::Coef q2;
+    if (active) {
+      pre = out.prefetch(node);
+      q1 = axis1.coeffs(g0, cf, L);
+      q2 = axis2.coeffs(g0, cf, L);
+    }
+    __pipeline_wait_prior(0);  // this thread's copies of plane g0
+    form_plane(b);
+    if (g0 + 1 < g_end) {  // the next plane's copies, in flight while this one is summed
+      copy_plane(g0 + 1, b ^ 1);
       __pipeline_commit();
     }
-    __syncthreads();  // the field slots of parity b hold the step's planes
+    __syncthreads();  // field plane b holds plane g0
     if (active) {
-#pragma unroll
-      for (int d = 0; d < D; ++d)
-        if (g + d < g_end) {
-          const PlaneVals<T, NF> plane{fields + (b * D + d) * NF * PE, PE};
-          T y = out.start(pre[d]);
-          y = add_rn(y, axis1.term(plane, q1[d], p, Kw));
-          y = add_rn(y, axis2.term(plane, q2[d], p, Kw));
-          out(node + d * P12, g + d, g1, g2, y, plane(col), pre[d]);
-        }
+      const PlaneVals<T, NF> plane{fields + b * NF * PE, PE};
+      T y = out.start(pre);
+      y = add_rn(y, axis1.term(plane, q1, p, Kw));
+      y = add_rn(y, axis2.term(plane, q2, p, Kw));
+      out(node, g0, g1, g2, y, plane(col), pre);
     }
   }
 }

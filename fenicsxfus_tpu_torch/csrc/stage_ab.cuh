@@ -47,8 +47,15 @@ __global__ void __launch_bounds__(kColumnMaxThreads, kColumnMinBlocks)
                                 ColumnStore<T>{a.yA});
 }
 
+// Blocks of kPlaneMaxThreads per SM that K5b's registers must allow: the
+// main-path kernel of the one-field kind (linear) fits in 64 registers a
+// thread; the two-field kinds spill there, so they and the general kernels
+// may take up to 128 (tools/split_variants.py).
+template <int NF, bool MAIN>
+constexpr int kStageBMinBlocks = NF == 1 && MAIN ? 2 : 1;
+
 template <typename T, int KIND, bool MAIN>
-__global__ void __launch_bounds__(kPlaneMaxThreads, kPlaneMinBlocks)
+__global__ void __launch_bounds__(kPlaneMaxThreads, (kStageBMinBlocks<KindTraits<KIND>::NF, MAIN>))
     stage_b_kernel(const __grid_constant__ StageArgs<T> a, const __grid_constant__ Lattice L,
                    const __grid_constant__ K1Mat<T> K, const __grid_constant__ PlaneShape S) {
   using Tr = KindTraits<KIND>;

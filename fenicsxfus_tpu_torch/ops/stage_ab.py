@@ -53,7 +53,7 @@ from .stiffness import (
     DTYPE_CODES,
     GRID_MAX,
     ITEMSIZE,
-    LOAD_SLOTS,
+    MIN_BLOCKS,
     SMEM_MAX,
     SMEM_TARGET,
     check_fields,
@@ -62,21 +62,21 @@ from .stiffness import (
     launch_args,
     stiffness_axes12_plain,
     stiffness_axis0_plain,
+    tile_threads,
 )
 
 # ---------------------------------------------------------------- the plans
 
 # K5a's column march (csrc/column.cuh) and K5b's plane tile (csrc/plane.cuh):
 # the starting sizes, which the plans cut to the lattice, to the threads and
-# shared memory of a block and to the card's SM count.
+# shared memory of a block and to the card's SM count (MIN_BLOCKS: below it
+# the plans cut the slab or the run first, then the width).
 COLUMN_THREADS = 256  # columns of a K5a block, one thread each
 COLUMN_SLAB = 8  # cells of a K5a block's march along g0
 COLUMN_MAX_THREADS = 512  # csrc/column.cuh kColumnMaxThreads
-PLANE_TILE = (16, 32)  # owned nodes of a K5b tile along g1, g2 (csrc/plane.cuh kPlaneMainT1/T2)
+PLANE_TILE = (8, 32)  # owned nodes of a K5b tile along g1, g2 (csrc/plane.cuh kPlaneMainT1/T2)
 PLANE_RUN = 16  # g0 planes of a K5b block
 PLANE_MAX_THREADS = 512  # csrc/plane.cuh kPlaneMaxThreads
-PLANE_DEPTH = 1  # planes a K5b block forms and sums between two barriers (kPlaneDepth)
-MIN_BLOCKS = 132  # the H100's SMs: below, the plans cut the slab or run, then the width
 
 
 def column_plan(gdims, p: int) -> dict:
@@ -127,17 +127,10 @@ def column_plan_ints(plan: dict) -> ctypes.Array:
 
 def plane_smem_bytes(t1: int, t2: int, p: int, nf: int, nr: int, itemsize: int) -> int:
     """Dynamic shared memory of a t1 × t2 plane tile (csrc/plane.cuh): two
-    steps of ``PLANE_DEPTH`` planes of the nf fields and of their nr raw
-    operands, each spanning t + p + 1 nodes per axis, and K1."""
+    planes of the nf fields and two of their nr raw operands, each spanning
+    t + p + 1 nodes per axis, and K1."""
     N = p + 1
-    return (2 * PLANE_DEPTH * (nf + nr) * (t1 + p + 1) * (t2 + p + 1) + N * N) * itemsize
-
-
-def plane_threads(t1: int, t2: int, p: int) -> int:
-    """Threads of a t1 × t2 plane tile: one per column, and enough to load a
-    plane with its halo ``LOAD_SLOTS`` nodes each, in whole warps."""
-    plane = (t1 + p + 1) * (t2 + p + 1)
-    return 32 * -(-max(t1 * t2, -(-plane // LOAD_SLOTS)) // 32)
+    return (2 * (nf + nr) * (t1 + p + 1) * (t2 + p + 1) + N * N) * itemsize
 
 
 def plane_plan(gdims, p: int, nf: int, dtype, nr=None) -> dict:
@@ -175,7 +168,7 @@ def _plane_plan(gdims, p, nf, nr, itemsize, tile_nodes, run, target, min_blocks,
 
     def fits(c1, c2):
         t1, t2 = c1 * p, c2 * p
-        return (plane_threads(t1, t2, p) <= max_threads
+        return (tile_threads(t1, t2, p) <= max_threads
                 and plane_smem_bytes(t1, t2, p, nf, nr, itemsize) <= target)
 
     # halve along g1 first: rows along g2 stay long, for coalesced loads
@@ -198,7 +191,7 @@ def _plane_plan(gdims, p, nf, nr, itemsize, tile_nodes, run, target, min_blocks,
             f"a {t1} x {t2} plane tile at p={p} with {nf} fields of {itemsize} bytes needs "
             f"{smem} B of shared memory; a block may have {SMEM_MAX} B"
         )
-    threads = plane_threads(t1, t2, p)
+    threads = tile_threads(t1, t2, p)
     if threads > max_threads:
         raise ValueError(f"a {t1} x {t2} plane tile at p={p} needs {threads} threads; a block "
                          f"may have {max_threads}")

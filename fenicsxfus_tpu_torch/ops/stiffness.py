@@ -140,6 +140,14 @@ def tile_smem_bytes(t1: int, t2: int, p: int, nf: int, nr: int, itemsize: int) -
     return (N * (nf + nr) * (t1 + p + 1) * (t2 + p + 1) + N * N) * itemsize
 
 
+def tile_threads(t1: int, t2: int, p: int) -> int:
+    """Threads of a t1 × t2 tile (csrc/tile.cuh, csrc/plane.cuh): one per
+    column, and enough to load a plane with its halo ``LOAD_SLOTS`` nodes
+    each, in whole warps."""
+    plane = (t1 + p + 1) * (t2 + p + 1)
+    return 32 * -(-max(t1 * t2, -(-plane // LOAD_SLOTS)) // 32)
+
+
 def tile_plan(gdims, p: int, nf: int, dtype, nr=None) -> dict:
     """The launch shape of the tiled K1/K2 kernels on a [G0, G1, G2] lattice
     of degree p with ``nf`` stencil fields of ``dtype``, formed from ``nr``
@@ -191,8 +199,7 @@ def _tile_plan(gdims, p, nf, nr, itemsize, tile_nodes, slab_cells, target, min_b
             f"a {t1} x {t2} tile at p={p} with {nf} fields of {itemsize} bytes needs {smem} B "
             f"of shared memory; a block may have {SMEM_MAX} B"
         )
-    plane = (t1 + p + 1) * (t2 + p + 1)
-    threads = 32 * -(-max(t1 * t2, -(-plane // LOAD_SLOTS)) // 32)
+    threads = tile_threads(t1, t2, p)
     if threads > MAX_THREADS:
         raise ValueError(f"a {t1} x {t2} tile at p={p} needs {threads} threads; a block may "
                          f"have {MAX_THREADS}")

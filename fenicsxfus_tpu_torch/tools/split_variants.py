@@ -24,23 +24,24 @@ process each, in turns.
 from variants import main, median_ms
 
 STAGE_AB = "../ops/stage_ab.py"
-# thread 0 of each K5b block adds the clock cycles of each phase of a step
-# (copy wait, form and the next copies, barrier, sums and epilogue)
+# thread 0 of each K5b block adds the clock cycles of each phase of a plane
+# (the output operands' loads issued and the copy wait, form and the next
+# copies, barrier, sums and epilogue)
 CLOCKED = [
     ("plane.cuh", "namespace fus {\n",
      "namespace fus {\n__device__ unsigned long long plane_clk[5];\n"),
-    ("plane.cuh", "    // each node's output operands and coefficients, in flight over the barrier\n",
+    ("plane.cuh", "    // the node's output operands and coefficients, in flight over the barrier\n",
      "    const long long t0 = clock64();\n"
-     "    // each node's output operands and coefficients, in flight over the barrier\n"),
-    ("plane.cuh", "    __pipeline_wait_prior(0);  // this thread's copies of the step's planes\n",
-     "    __pipeline_wait_prior(0);  // this thread's copies of the step's planes\n"
+     "    // the node's output operands and coefficients, in flight over the barrier\n"),
+    ("plane.cuh", "    __pipeline_wait_prior(0);  // this thread's copies of plane g0\n",
+     "    __pipeline_wait_prior(0);  // this thread's copies of plane g0\n"
      "    const long long t1 = clock64();\n"),
-    ("plane.cuh", "    __syncthreads();  // the field slots of parity b hold the step's planes\n",
+    ("plane.cuh", "    __syncthreads();  // field plane b holds plane g0\n",
      "    const long long t2 = clock64();\n"
-     "    __syncthreads();  // the field slots of parity b hold the step's planes\n"
+     "    __syncthreads();  // field plane b holds plane g0\n"
      "    const long long t3 = clock64();\n"),
-    ("plane.cuh", "          out(node + d * P12, g + d, g1, g2, y, plane(col), pre[d]);\n        }\n    }\n",
-     "          out(node + d * P12, g + d, g1, g2, y, plane(col), pre[d]);\n        }\n    }\n"
+    ("plane.cuh", "      out(node, g0, g1, g2, y, plane(col), pre);\n    }\n",
+     "      out(node, g0, g1, g2, y, plane(col), pre);\n    }\n"
      "    if (threadIdx.x == 0) {\n"
      "      atomicAdd(&plane_clk[0], (unsigned long long)(t1 - t0));\n"
      "      atomicAdd(&plane_clk[1], (unsigned long long)(t2 - t1));\n"
@@ -53,27 +54,24 @@ CLOCKED = [
      '  const unsigned long long z[5] = {};\n'
      '  return (int)cudaMemcpyToSymbol(fus::plane_clk, z, sizeof(z));\n}\n'),
 ]
-TILE_8X32 = [
-    ("plane.cuh", "kPlaneMainT1 = 16, kPlaneMainT2 = 32;", "kPlaneMainT1 = 8, kPlaneMainT2 = 32;"),
-    (STAGE_AB, "PLANE_TILE = (16, 32)", "PLANE_TILE = (8, 32)")]
-DEPTH_2 = [("plane.cuh", "kPlaneDepth = 1;", "kPlaneDepth = 2;"),
-           (STAGE_AB, "PLANE_DEPTH = 1", "PLANE_DEPTH = 2")]
 # name: [(file, relative to csrc/, old text, new text), ...]
 SOURCE_VARIANTS = {
     "committed": [],
-    "K5b tile 8x32": TILE_8X32,
-    "K5b 64 registers (2 blocks of 512 per SM)": [
-        ("plane.cuh", "kPlaneMinBlocks = 1;", "kPlaneMinBlocks = 2;")],
-    "K5b tile 8x32, 64 registers (4 blocks of 256 per SM)": TILE_8X32 + [
-        ("plane.cuh", "kPlaneMinBlocks = 1;", "kPlaneMinBlocks = 4;"),
+    "K5b tile 16x32": [
+        ("plane.cuh", "kPlaneMainT1 = 8, kPlaneMainT2 = 32;", "kPlaneMainT1 = 16, kPlaneMainT2 = 32;"),
+        (STAGE_AB, "PLANE_TILE = (8, 32)", "PLANE_TILE = (16, 32)")],
+    "K5b two-field kinds in 64 registers": [
+        ("stage_ab.cuh", "NF == 1 && MAIN ? 2 : 1;", "MAIN ? 2 : 1;")],
+    "K5b one-field kind in 128 registers": [
+        ("stage_ab.cuh", "NF == 1 && MAIN ? 2 : 1;", "1;")],
+    "K5b two-field kinds in 85 registers (3 blocks of 256 per SM)": [
+        ("stage_ab.cuh", "NF == 1 && MAIN ? 2 : 1;", "NF == 1 && MAIN ? 4 : 3;"),
         ("plane.cuh", "kPlaneMaxThreads = 512;", "kPlaneMaxThreads = 256;"),
         (STAGE_AB, "PLANE_MAX_THREADS = 512", "PLANE_MAX_THREADS = 256")],
-    "K5b depth 2": DEPTH_2,
-    "K5b depth 2, tile 8x32": DEPTH_2 + TILE_8X32,
     "K5b without the next plane in flight": [
-        ("plane.cuh", "      __pipeline_commit();\n    }\n    __syncthreads();  // the field slots",
+        ("plane.cuh", "      __pipeline_commit();\n    }\n    __syncthreads();  // field plane b",
          "      __pipeline_commit();\n      __pipeline_wait_prior(0);\n    }\n"
-         "    __syncthreads();  // the field slots")],
+         "    __syncthreads();  // field plane b")],
     "K5a 40 registers (3 blocks of 512 per SM)": [
         ("column.cuh", "kColumnMinBlocks = 1;", "kColumnMinBlocks = 3;")],
     "K5a without the next cell in flight": [
@@ -181,7 +179,7 @@ def measure(mode: str) -> None:
                     torch.cuda.synchronize()
                     clk(buf)
                     n = max(buf[4], 1)
-                    out.append("K5b cycles per step of thread 0: wait %.0f, form+copy %.0f, "
+                    out.append("K5b cycles per plane of thread 0: wait %.0f, form+copy %.0f, "
                                "barrier %.0f, sums+epilogue %.0f" % tuple(buf[i] / n for i in range(4)))
         print(f"  {label}: " + "; ".join(out), flush=True)
 

@@ -177,8 +177,8 @@ def test_main_path_plans_keep_the_starting_sizes():
         assert (col["columns"], col["slab"]) == (stage_ab.COLUMN_THREADS, stage_ab.COLUMN_SLAB)
         for nf in (1, 2):
             plan = plane_plan(gdims, 4, nf, torch.float32)
-            assert plan["tile"] == stage_ab.PLANE_TILE == (16, 32)
-            assert plan["planes"] == stage_ab.PLANE_RUN and plan["threads"] == 16 * 32
+            assert plan["tile"] == stage_ab.PLANE_TILE == (8, 32)
+            assert plan["planes"] == stage_ab.PLANE_RUN and plan["threads"] == 8 * 32
 
 
 def test_plans_are_cut_to_the_lattice_in_order():
@@ -189,13 +189,12 @@ def test_plans_are_cut_to_the_lattice_in_order():
     # 256 columns, slab 8 -> 3 x 2 blocks; slab 1 -> 27, then 128, 64, 32
     # columns -> 45, 90, 180 >= 132
     assert column_plan(gdims, 4) == {"columns": 32, "slab": 1, "grid": (20, 9)}
-    # a 16 x 28 tile (the lattice's 5 x 7 cells cut from 4 x 8), run 16 ->
-    # 2 x 2 x 3 blocks; run 1 -> 148 >= 132
+    # an 8 x 28 tile (2 x 8 cells cut to the lattice's 7 along g2), run 16
+    # -> 2 x 3 x 3 blocks; run 1 -> 222 >= 132
     plan = plane_plan(gdims, 4, 2, torch.float32)
-    assert plan["tile"] == (16, 28) and plan["planes"] == 1 and plan["grid"] == (2, 2, 37)
-    # a lattice of 13 planes: the run reaches 1 (2 x 2 x 13 = 52), then the
-    # tile halves along g1 (4 x 13 = 104 blocks: 8 x 28), then again (1 cell,
-    # 6 x 2 x 13 = 156)
+    assert plan["tile"] == (8, 28) and plan["planes"] == 1 and plan["grid"] == (2, 3, 37)
+    # a lattice of 13 planes: the run reaches 1 (2 x 3 x 13 = 78), then the
+    # tile halves along g1 (1 cell: 2 x 6 x 13 = 156)
     plan = plane_plan((13, 21, 29), 4, 2, torch.float32)
     assert plan["tile"] == (4, 28) and plan["planes"] == 1 and plan["grid"] == (2, 6, 13)
 
@@ -221,4 +220,4 @@ def test_unsound_plans_raise(monkeypatch):
             plane_plan(gdims, 4, 2, torch.float32)
     # the sizes come back with the module's values
     assert column_plan(gdims, 4)["columns"] == 256
-    assert plane_plan(gdims, 4, 2, torch.float32)["tile"] == (16, 32)
+    assert plane_plan(gdims, 4, 2, torch.float32)["tile"] == (8, 32)
