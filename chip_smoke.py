@@ -35,10 +35,15 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    and 3 further steps held against the unfused (K1) step;
 8. the O'Neil check of the focused source, ``drivers.hitu.validate_oneil``
    at its defaults (H101, 0.35 MHz, nx=64, 5.7M DOF);
-9. K4a/K4b (the two-kernel stiffness) against their plain versions, each
-   kernel alone and the pair against K1's plain version, fp32, on (9,5,7)
-   at p = 2, 3, 4 (constant and DG-0 coefficients, 1 and 2 fields), on
-   (41,1,1) and on the 104³ headline lattice with CUDA-event timings;
+9. K4a/K4b (the two-kernel stiffness: K4a the axis-0 column march of
+   ``csrc/column.cuh``, K4b the in-plane plane tile of ``csrc/plane.cuh``,
+   shaped by ``ops/stiffness.py::column_plan``/``axes12_plan``) against
+   their plain versions, each kernel alone and the pair against K1's plain
+   version, fp32, on (9,5,7) at p = 2, 3, 4 and on the ragged (13,11,17) at
+   p = 1..8 (constant and DG-0 coefficients, 1 and 2 fields), on (41,1,1)
+   and on the 104³ headline lattice with CUDA-event timings (and the
+   device's time alone beside them, K1's too), each plan and each timing's
+   share of its bound;
 10. K5a/K5b (the two-kernel RK stage: K5a the axis-0 column march of
    ``csrc/column.cuh``, K5b the in-plane plane tile of ``csrc/plane.cuh``,
    shaped by ``ops/stage_ab.py::column_plan``/``plane_plan``) against their
@@ -51,14 +56,17 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    through K5a/K5b ``focused`` (peak held against the JAX package's run and
    against phase 7's), the headline through K5 ``linear`` with ``energy()``
    through K4a/K4b, and the lossy and Westervelt channel gates through K5,
-   each followed by 3 steps held against the plain (or unfused) path;
+   each followed by 3 steps held against the plain (or unfused) path; then
+   the unfused headline (``FUS_FUSED=0``: one stiffness apply per RK stage)
+   for 20 RK4 steps from a random state through K4a/K4b, and again through
+   K1 (``FUS_V3=1``), the two final states equal bit for bit;
 12. the whole-step wavefront, with ``FUS_STEP_WAVE=1`` set for the phase: K3
    (one launch per RK4 step) against its plain version for all four kinds
    at (9,5,7) (constant and DG-0), (41,1,1), (81,1,1), the HITU lattice
    (timed for every kind) and, for ``linear``, the headline (timed), inv_m
    dense and separable for linear and lossy, and against four K2 launches
    of the same step, bit for bit (every kernel rounds alike), as are four
-   K5a -> K5b pairs; the
+   K5a -> K5b pairs, and K4a -> K4b on the step's fields equals K1; the
    step at the HITU lattice on 1 block against the default grid, bit for
    bit; the plan (tile, slab, lag, ring of the slopes) and the share of
    the bound at the HITU lattice and the headline; then HITU W-H101-WATER
@@ -132,6 +140,27 @@ def cuda_median_ms(fn, runs: int = 10) -> float:
     return float(np.median(times))
 
 
+def cuda_device_ms(fn, runs: int = 10) -> float:
+    """As ``cuda_median_ms``, but with the stream held busy (about 2 ms of
+    ``torch.cuda._sleep``) while the host enqueues the events and ``fn``'s
+    launches: the device's time alone, without the wrapper's host time
+    before its launch. ``fn`` must not synchronize."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def rel_err(a, b) -> tuple[float, float]:
     """(max |a - b| / max |b|, max |a - b|)."""
     d = float((a.double() - b.double()).abs().max())
@@ -188,11 +217,24 @@ def split_plan_line(gdims, kind: str) -> str:
     ``kind`` on a p = 4 lattice."""
     import torch
 
-    from fenicsxfus_tpu_torch.ops.stage import KIND_FIELDS
-    from fenicsxfus_tpu_torch.ops.stage_ab import column_plan, plane_plan
+    from fenicsxfus_tpu_torch.ops.stage import KIND_FIELDS, KIND_RAW
+    from fenicsxfus_tpu_torch.ops.stiffness import column_plan, plane_plan
 
+    nf = KIND_FIELDS[kind]
     return (f"K5a column plan {column_plan(gdims, 4)}, K5b plane plan "
-            f"{plane_plan(gdims, 4, KIND_FIELDS[kind], torch.float32)}")
+            f"{plane_plan(gdims, 4, nf, torch.float32, nr=KIND_RAW[nf])}")
+
+
+def k4_plan_line(gdims, p: int) -> str:
+    """The fp32 plans of K4a (column march) and K4b (plane tile, one and two
+    fields) on a lattice of degree p."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.stiffness import axes12_plan, column_plan
+
+    return (f"K4a column plan {column_plan(gdims, p)}, K4b plane plan "
+            f"{axes12_plan(gdims, p, 1, torch.float32)}, of two fields "
+            f"{axes12_plan(gdims, p, 2, torch.float32)}")
 
 
 def plan_line(gdims, p: int, nf: int, nr=None) -> str:
@@ -811,7 +853,7 @@ def phase_k4(device, card) -> dict:
 
     from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
     from fenicsxfus_tpu_torch.ops.stiffness import (
-        pack_const, pack_field, stiffness_axes12_apply, stiffness_axes12_plain,
+        pack_const, pack_field, stiffness_apply, stiffness_axes12_apply, stiffness_axes12_plain,
         stiffness_axis0_apply, stiffness_axis0_plain, stiffness_plain,
     )
 
@@ -820,15 +862,18 @@ def phase_k4(device, card) -> dict:
     gen = torch.Generator(device=device).manual_seed(9)
     headline = ((HEADLINE_NX,) * 3, 4)
     # unit cells and coefficients at the small grids (no mass term to hide
-    # behind, but the stiffness alone is all there is here); the headline
-    # lattice and coefficient of phase [2]
-    grids = [((9, 5, 7), p) for p in (2, 3, 4)] + [((41, 1, 1), 4), headline]
+    # behind, but the stiffness alone is all there is here): every degree on
+    # the ragged lattice, which no tile divides; the headline lattice and
+    # coefficient of phase [2]
+    grids = ([((9, 5, 7), p) for p in (2, 3, 4)] + [((13, 11, 17), p) for p in range(1, 9)]
+             + [((41, 1, 1), 4), headline])
     out = {}
     for grid, p in grids:
         if (grid, p) == headline:
             lat, c = _lattice(grid, p, torch.float32), 1.0 / 1000.0
         else:
             lat, c = LatticeStiffness(grid, p, (1.0, 1.0, 1.0), torch.float32), 1.0
+        say(f"[9] K4 grid={grid} p={p}: {k4_plan_line(lat.gdims, p)}")
         coeffs = {"const": pack_const(lat, c, device),
                   "dg0": pack_field(lat, rng.uniform(0.5, 2.0, int(np.prod(grid))) * c, device)}
         xs = [torch.randn(lat.gdims, generator=gen, device=device) for _ in range(2)]
@@ -855,22 +900,31 @@ def phase_k4(device, card) -> dict:
             for name, F in coeffs.items():
                 x = [xs[0]]
                 yA = stiffness_axis0_apply(x, [F], p)
+                kernels = {"K4a": lambda: stiffness_axis0_apply(x, [F], p),
+                           # in place on one scratch yA, as the two-kernel path runs it
+                           "K4b": lambda: stiffness_axes12_apply(x, [F], yA, p),
+                           "K1": lambda: stiffness_apply(x, [F], p)}
                 times = {
-                    "K4a": (cuda_median_ms(lambda: stiffness_axis0_apply(x, [F], p)),
+                    "K4a": (cuda_median_ms(kernels["K4a"]),
                             cuda_median_ms(lambda: stiffness_axis0_plain(x, [F], p))),
-                    # in place on one scratch yA, as the two-kernel path runs it
-                    "K4b": (cuda_median_ms(lambda: stiffness_axes12_apply(x, [F], yA, p)),
+                    "K4b": (cuda_median_ms(kernels["K4b"]),
                             cuda_median_ms(lambda: stiffness_axes12_plain(x, [F], yA, p))),
                 }
+                device = {k: cuda_device_ms(fn) for k, fn in kernels.items()}
+                xb, gd = nbytes(xs[0]), lat.gdims
+                bounds = {"K4a": floor_ms(xb + nbytes(F["F0"]), xb, stencil_flops(gd, p, 1, (0,))),
+                          "K4b": floor_ms(2 * xb + nbytes(F["F1"], F["F2"]), xb,
+                                          stencil_flops(gd, p, 1, (1, 2)))}
                 for k, (ms, pms) in times.items():
-                    say(f"[9] {k} headline {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
-                        f"(median of 10, CUDA events; {card})")
+                    say(f"[9] {k} headline {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                        f"{share_text(bounds[k], ms)} (median of 10, CUDA events; {card}); "
+                        f"the device alone {device[k]:.3f} ms, bound/ms "
+                        f"{bounds[k]['bound_ms'] / device[k]:.3f}")
+                say(f"[9] headline {name}, the device alone: K4a + K4b "
+                    f"{device['K4a'] + device['K4b']:.3f} ms against K1 {device['K1']:.3f} ms")
                 if name == "const":
-                    xb, gd = nbytes(xs[0]), lat.gdims
-                    out["K4a"].update(ms=times["K4a"][0], plain_ms=times["K4a"][1], **floor_ms(
-                        xb + nbytes(F["F0"]), xb, stencil_flops(gd, p, 1, (0,))))
-                    out["K4b"].update(ms=times["K4b"][0], plain_ms=times["K4b"][1], **floor_ms(
-                        2 * xb + nbytes(F["F1"], F["F2"]), xb, stencil_flops(gd, p, 1, (1, 2))))
+                    for k, (ms, pms) in times.items():
+                        out[k].update(ms=ms, plain_ms=pms, **bounds[k])
                 del yA
         del xs
         torch.cuda.synchronize()
@@ -954,9 +1008,73 @@ def phase_k5(device, card) -> dict:
     return out
 
 
+UNFUSED_STEPS = 20
+
+
+def phase_unfused_headline(device, card, nx) -> dict:
+    """The headline's unfused step (``FUS_FUSED=0``: the reference RK step
+    over ``rhs_pure``, one stiffness apply per RK stage) for UNFUSED_STEPS
+    RK4 steps from a random state through ``LinearSpectralExplicit.rk``:
+    first through K4a -> K4b (``FUS_V3=0``), then from the same state
+    through K1 (``FUS_V3=1``). Launch counts, rates, and the two final
+    states bit for bit (K4a -> K4b rounds as K1)."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+    from fenicsxfus_tpu_torch.models.common import step_sizes
+
+    degree, c0, rho0, f0, p0, L = 4, 1500.0, 1000.0, 0.5e6, 60000.0, 0.12
+    with environment({"FUS_FUSED": "0"}):
+        mesh = ft.create_box((nx, nx, nx), (0, 0, 0), (L, L, L))
+        ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-9, 2: lambda x: x[0] > L - 1e-9})
+        dt = 0.9 * (L / nx) / (c0 * degree**2)
+        model = ft.LinearSpectralExplicit(mesh, None, degree, c0, rho0, f0, p0, c0, 4, dt,
+                                          dtype=torch.float32, device=device)
+        ndofs = model.number_of_dofs()
+        nsteps = len(step_sizes(0.0, UNFUSED_STEPS * dt, dt))
+        gen = torch.Generator(device=device).manual_seed(11)
+        u0, v0 = (torch.randn(ndofs, generator=gen, device=device) for _ in range(2))
+        runs = {}
+        for v3, want in (("0", ("K4a", "K4b")), ("1", ("K1",))):
+            with environment({"FUS_V3": v3}):
+                model.u_n, model.v_n = u0.clone(), v0.clone()
+                torch.cuda.synchronize()
+                # --- the main path: counts from 0 just before, read just after
+                reset_counts()
+                t0 = time.perf_counter()
+                u, _, _ = model.rk(0.0, UNFUSED_STEPS * dt)
+                torch.cuda.synchronize()
+                solve = time.perf_counter() - t0
+                launches = counts()
+            rate = ndofs * nsteps / solve / 1e9
+            say(f"[11] unfused headline FUS_V3={v3}: {model.step_kind} step, {nsteps} RK4 steps "
+                f"in {solve:.3f} s, {rate:.4f} GDOF-RK4-updates/s ({card}), launches {launches}")
+            if model.step_kind != "unfused":
+                raise AssertionError(f"FUS_FUSED=0 took the {model.step_kind} step")
+            for k in ("K1", "K4a", "K4b"):  # one apply per RK stage, 4 per step
+                expect = 4 * nsteps if k in want else 0
+                if launches[k] != expect:
+                    raise AssertionError(f"unfused headline FUS_V3={v3}: {k} launched "
+                                         f"{launches[k]}, expected {expect}")
+            if any(launches[k] for k in STAGE_KERNELS):
+                raise AssertionError(f"unfused headline launched a stage kernel: {launches}")
+            runs[v3] = {"u": u, "launches": launches, "rate": rate, "solve_s": solve}
+    same = torch.equal(runs["0"]["u"], runs["1"]["u"])
+    finite = bool(torch.isfinite(runs["0"]["u"]).all())
+    say(f"[11] unfused headline: K4a -> K4b {runs['0']['rate']:.4f} against K1 "
+        f"{runs['1']['rate']:.4f} GDOF-RK4-updates/s; K4 launches "
+        f"{runs['0']['launches']['K4a'] + runs['0']['launches']['K4b']} "
+        f"({(runs['0']['launches']['K4a'] + runs['0']['launches']['K4b']) // nsteps} a step); "
+        f"final u finite {finite}, bit for bit with K1: {same}")
+    if not (same and finite):
+        raise AssertionError("the unfused headline through K4a -> K4b differs from K1's")
+    return {k: {n: r[n] for n in ("launches", "rate", "solve_s")} for k, r in runs.items()}
+
+
 def phase_two_kernel(device, card, k2_peak: float) -> dict:
     """The two-kernel pipeline's main path with its switches set for the
-    phase: HITU, the headline and the channel gates."""
+    phase: HITU, the headline and the channel gates; then the unfused
+    headline through K4a/K4b against K1."""
     t_phase = time.perf_counter()
     with environment(TWO_KERNEL_ENV):
         say(f"[11] switches {TWO_KERNEL_ENV}")
@@ -965,8 +1083,10 @@ def phase_two_kernel(device, card, k2_peak: float) -> dict:
         headline = phase_headline(device, card, HEADLINE_NX, TWO_KERNEL, "[11]")
         say(f"[11] headline done at {time.perf_counter() - t_phase:.1f} s")
         channel = phase_channel(device, TWO_KERNEL, "[11]")
+    say(f"[11] channels done at {time.perf_counter() - t_phase:.1f} s")
+    unfused = phase_unfused_headline(device, card, HEADLINE_NX)
     say(f"[11] done in {time.perf_counter() - t_phase:.1f} s")
-    return {"hitu": hitu_run, "headline": headline, "channel": channel}
+    return {"hitu": hitu_run, "headline": headline, "channel": channel, "unfused": unfused}
 
 
 WAVE_DT = 0.02  # dt of the K3 step tables: keeps m0 − d2·un away from 0
@@ -1040,6 +1160,9 @@ def phase_k3(device, card) -> dict:
     from fenicsxfus_tpu_torch.ops.step_wave import (
         SEP_KINDS, step_wave_apply, step_wave_check, step_wave_plain,
     )
+    from fenicsxfus_tpu_torch.ops.stiffness import (
+        stiffness_apply, stiffness_axes12_apply, stiffness_axis0_apply,
+    )
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(12)
@@ -1063,6 +1186,11 @@ def phase_k3(device, card) -> dict:
                 ref = step_wave_plain(**args)
                 k2 = step_wave_plain(**args, stage_fn=stage_apply)
                 k5 = step_wave_plain(**args, stage_fn=stage_ab_apply)
+                # K4a -> K4b against K1 on the step's fields and coefficients
+                fields = [args["u0"], args["v0"]][: len(args["Fs"])]
+                same4 = all(torch.equal(stiffness_axes12_apply(
+                    x, F, stiffness_axis0_apply(x, F, 4), 4), stiffness_apply(x, F, 4))
+                    for x, F in ((fields[:1], args["Fs"][:1]), (fields, args["Fs"])))
                 step_wave_check()
                 torch.cuda.synchronize()
                 worst = max(rel_err(a, b) for a, b in zip(got, ref))
@@ -1072,7 +1200,8 @@ def phase_k3(device, card) -> dict:
                 form = ("DG-0" if dg0 else "const") + (", inv_m separable" if sep else "")
                 say(f"[12] K3 {kind} grid={grid} p=4 {form}: max|d|/max|ref| = {worst[0]:.3e}; "
                     f"against four K2 launches {vs_k2[0]:.3e} (bit for bit: {same}); four "
-                    f"K5a -> K5b pairs against them bit for bit: {same5}")
+                    f"K5a -> K5b pairs against them bit for bit: {same5}; K4a -> K4b against "
+                    f"K1 bit for bit: {same4}")
                 if not worst[0] <= TOL:
                     raise AssertionError(
                         f"K3 {kind} disagrees with its plain version: {worst[0]:.3e} > {TOL}")
@@ -1080,6 +1209,8 @@ def phase_k3(device, card) -> dict:
                     raise AssertionError(f"K3 {kind} differs from four K2 launches")
                 if not same5:
                     raise AssertionError(f"K5a -> K5b {kind} differs from K2")
+                if not same4:
+                    raise AssertionError(f"K4a -> K4b on the {kind} fields differs from K1")
                 if grid in (HITU_GRID, headline):
                     ms = cuda_median_ms(lambda: step_wave_apply(**args))
                     pms = cuda_median_ms(lambda: step_wave_plain(**args))
@@ -1096,7 +1227,7 @@ def phase_k3(device, card) -> dict:
                     if main_form and (grid == headline or kind != "linear"):
                         out[kind] = {"max_abs_err": worst[1], "ms": ms, "plain_ms": pms,
                                      "k2_ms": k2ms, **bound}
-                del args, got, ref, k2, k5
+                del args, got, ref, k2, k5, fields
                 torch.cuda.synchronize()
 
     # the grid-size check: 1 block against the default grid, bit for bit
@@ -1171,8 +1302,8 @@ def main() -> int:
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
     # from phase [11], K3 from phase [12] (HITU for focused, the headline
-    # for linear and for the stiffness through energy(), the channels for
-    # lossy and westervelt)
+    # for linear and for K1 through energy(), the unfused headline for K4,
+    # the channels for lossy and westervelt)
     def stage_launches(headline_run, channel_runs, hitu, k):
         return {"linear": headline_run["launches"][k]["linear"],
                 **{kind: channel_runs[kind][k] for kind in ("lossy", "westervelt")},
@@ -1196,12 +1327,12 @@ def main() -> int:
     kernels += [entry(f"stage_apply {kind} (K2)", "stage.cu",
                       "fenicsxfus_tpu/ops/pallas_stage_v3.py:442", k2_launches[kind], kinds[kind])
                 for kind in ("linear",) + NEW_KINDS]
+    # K4's main path: the unfused headline through K4a -> K4b ([11])
+    k4_launches = two["unfused"]["0"]["launches"]
     kernels += [entry("stiffness_axis0 (K4a)", "stiffness_ab.cu",
-                      "fenicsxfus_tpu/ops/pallas_lattice.py:522",
-                      two["headline"]["launches"]["K4a"], k4["K4a"]),
+                      "fenicsxfus_tpu/ops/pallas_lattice.py:522", k4_launches["K4a"], k4["K4a"]),
                 entry("stiffness_axes12 (K4b)", "stiffness_ab.cu",
-                      "fenicsxfus_tpu/ops/pallas_lattice.py:572",
-                      two["headline"]["launches"]["K4b"], k4["K4b"])]
+                      "fenicsxfus_tpu/ops/pallas_lattice.py:572", k4_launches["K4b"], k4["K4b"])]
     for k, fn, line in (("K5a", "stage_a", 276), ("K5b", "stage_b", 444)):
         kernels += [entry(f"{fn} {kind} ({k})", "stage_ab.cu",
                           f"fenicsxfus_tpu/ops/pallas_stage.py:{line}", k5_launches[k][kind],

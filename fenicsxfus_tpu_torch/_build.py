@@ -111,12 +111,13 @@ def library() -> ctypes.CDLL:
     # K1 and K2 take the tile plan (ops/stiffness.py::tile_plan) as 8 ints
     lib.fus_stiffness_apply.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _LLP, _I, _DP, _INTP,
                                         _P, _I]
-    lib.fus_stiffness_axis0.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _LLP, _I, _DP, _P, _I]
-    lib.fus_stiffness_axes12.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _P, _LLP, _I, _DP, _P,
-                                         _I]
+    # K4a and K4b, like K5a and K5b, take their plans
+    # (ops/stiffness.py::column_plan, plane_plan) as 4 and 8 ints
+    lib.fus_stiffness_axis0.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _LLP, _I, _DP, _INTP,
+                                        _P, _I]
+    lib.fus_stiffness_axes12.argtypes = [_I, _I, _U64P, _U64P, _INTP, _P, _P, _LLP, _I, _DP,
+                                         _INTP, _P, _I]
     lib.fus_stage.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _INTP, _P, _I]
-    # K5a and K5b take their plans (ops/stage_ab.py::column_plan, plane_plan)
-    # as 4 and 8 ints
     lib.fus_stage_a.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _INTP, _P, _I]
     lib.fus_stage_b.argtypes = [_I, _I, _U64P, _INTP, _LLP, _I, _DP, _DP, _I, _I, _INTP, _P,
                                 _I]

@@ -1,14 +1,15 @@
-// The axis-0 column march of K5a (stage_ab.cu), written so that K4a
-// (stiffness_ab.cu) can take it next: the axis-0 term of
+// The axis-0 column march of K4a (stiffness_ab.cu, source FieldLoad) and
+// K5a (stage_ab.cu, source StageFields): the axis-0 term of
 // sum_f K_{cf[f]}(x_f) at every node, one thread per (g1, g2) column,
 // marching along g0 with the column's planes in registers.
 //
-// Replaces, for K5a, the one-thread-per-node stencil of
-// lattice.cuh::axis_at<0>, which summed the one or two cells holding each
-// node and re-read the N planes of a cell (and formed the stage fields
-// again) for every node of it: about 2N loads of each raw operand per node.
-// Its TPU counterpart is ops/pallas_stage.py::FusedRKStage.call_A, which
-// walks full-G0 column blocks [G0, bg1, G2] in VMEM.
+// Replaces, for K4a and K5a, a one-thread-per-node stencil that summed the
+// one or two cells holding each node and re-read the N planes of a cell
+// (and formed the stage fields again) for every node of it: about 2N loads
+// of each raw operand per node. Its TPU counterparts are
+// ops/pallas_lattice.py::_kernel_axis0 and
+// ops/pallas_stage.py::FusedRKStage.call_A, which walk full-G0 column
+// blocks [G0, bg1, G2] in VMEM.
 //
 // Bound on the H100: bytes. Axis 0 never leaves a (g1, g2) column, so a
 // column needs nothing of its neighbours: no halo, no shared memory, no
@@ -37,7 +38,7 @@
 // read at run time and every loop over a cell runs to kMaxN with guards, so
 // that every index into the registers is a constant.
 //
-// ops/stage_ab.py::column_plan chooses `columns` and `slab` and the grid;
+// ops/stiffness.py::column_plan chooses `columns` and `slab` and the grid;
 // tests/test_torch_split_plan.py replays the ownership and reads on the CPU.
 #pragma once
 
@@ -134,7 +135,7 @@ __device__ __forceinline__ void column_march(const Src& src, const Coeff<T> (&cf
       q[r] = from != nullptr ? __ldg(from + src.plane_base(r, g0, base, P12) + col) : (T)0;
     }
   };
-  // F0 [e0, G1, G2] at c*G1*G2 + g1*G2 + g2 (lattice.cuh::axis_coeffs)
+  // F0 [e0, G1, G2] at c*G1*G2 + g1*G2 + g2 (lattice.cuh's layout)
   auto coeff0 = [&](int c, T (&F)[NF]) {
 #pragma unroll
     for (int f = 0; f < NF; ++f)
@@ -207,7 +208,8 @@ __device__ __forceinline__ void column_march(const Src& src, const Coeff<T> (&cf
   }
 }
 
-// The output functor of a march that stores the axis-0 term (K5a's yA).
+// The output functor of a march that stores the axis-0 term (K4a's and
+// K5a's yA).
 template <typename T>
 struct ColumnStore {
   T* y;

@@ -1,13 +1,13 @@
-// The in-plane tile of K5b (stage_ab.cu), written so that K4b
-// (stiffness_ab.cu) can take it next: a start value per node (K5b: K5a's
+// The in-plane tile of K4b (stiffness_ab.cu, source FieldLoad) and K5b
+// (stage_ab.cu, source StageFields): a start value per node (K4a's or K5a's
 // axis-0 partial yA) plus the axis-1 and axis-2 terms of
 // sum_f K_{cf[f]}(x_f), handed to an output functor, one g0 plane at a time.
 //
-// Replaces, for K5b, the one-thread-per-node stencil of
-// lattice.cuh::axes12_at, which re-read each in-plane neighbour (and formed
-// its stage fields again) for every node of a cell: about 4N loads of each
-// raw operand per node. Its TPU counterpart is
-// ops/pallas_stage.py::FusedRKStage.call_B, which walks G0 planes.
+// Replaces, for K4b and K5b, a one-thread-per-node stencil that re-read
+// each in-plane neighbour (and formed its stage fields again) for every
+// node of a cell: about 4N loads of each raw operand per node. Its TPU
+// counterparts are ops/pallas_lattice.py::_kernel_axes12 and
+// ops/pallas_stage.py::FusedRKStage.call_B, which walk G0 planes.
 //
 // Bound on the H100: bytes. Axes 1 and 2 never leave a g0 plane, so a block
 // needs no axis-0 state at all: no ring of N planes (tile.cuh's), no cell
@@ -33,13 +33,19 @@
 //    the F1, F2 coefficients). The field planes alternate, so one barrier
 //    per plane suffices: a thread writes a field plane only after every
 //    thread has passed the barrier that ended the sums read from it.
+//  - A source whose raw operands are its fields (Src::kRawIsField: K4b's
+//    FieldLoad) has nothing to form: its copies go straight into the field
+//    planes, with no raw planes and no forming pass, and the next plane's
+//    copies start just after the barrier, once every thread is done with
+//    the sums of the plane before, whose field plane they overwrite.
 //
-// Shared memory: 2 x (NF fields + NR raw operands) planes with halo and K1,
-// against tile.cuh's N x (NF + NR): at p = 4 and the same tile 2/5 of it.
+// Shared memory: 2 x (NF fields + NR raw operands) planes with halo and K1
+// (2 x NF for a source of kRawIsField), against tile.cuh's N x (NF + NR): at
+// p = 4 and the same tile 2/5 of it.
 // MAIN fixes p = 4 and the tile (kPlaneMainT1 x kPlaneMainT2) at compile
 // time; otherwise they are read at run time.
 //
-// ops/stage_ab.py::plane_plan chooses the tile, the planes of a run, the
+// ops/stiffness.py::plane_plan chooses the tile, the planes of a run, the
 // threads, the shared-memory bytes and the grid;
 // tests/test_torch_split_plan.py replays the ownership and halo arithmetic.
 #pragma once
@@ -70,11 +76,16 @@ struct PlanePlan {
 
 // Dynamic shared memory of a plane tile: two planes of nf fields and two of
 // nr raw operands, spanning t + p + 1 nodes per axis, and K1
-// (ops/stage_ab.py::plane_smem_bytes).
+// (ops/stiffness.py::plane_smem_bytes).
 inline long long plane_smem_bytes(int t1, int t2, int p, int nf, int nr, int tsize) {
   const long long N = p + 1, e1 = t1 + p + 1, e2 = t2 + p + 1;
   return (2 * (nf + nr) * e1 * e2 + N * N) * tsize;
 }
+
+// The raw operands of a source that take shared planes of their own: none
+// where they are the fields (kRawIsField).
+template <typename Src>
+constexpr int plane_raw_operands = Src::kRawIsField ? 0 : Src::NR;
 
 // The plan from the C entries' 8 ints [t1, t2, planes, threads, smem bytes,
 // grid x, y, z]; false unless it gives every node an owner, every column a
@@ -134,6 +145,7 @@ __device__ __forceinline__ void plane_stencil(const Src& src, const Coeff<T> (&c
                                               const PlaneShape& S, const dim3& at,
                                               const Out& out) {
   constexpr int NR = Src::NR;
+  constexpr bool kDirect = Src::kRawIsField;  // copied straight into the field planes
   const int p = MAIN ? 4 : L.p;
   const int N = p + 1;
   const int t1 = MAIN ? kPlaneMainT1 : S.t1, t2 = MAIN ? kPlaneMainT2 : S.t2;
@@ -145,6 +157,10 @@ __device__ __forceinline__ void plane_stencil(const Src& src, const Coeff<T> (&c
   T* fields = reinterpret_cast<T*>(plane_smem);  // [2][NF][e1][e2]: the formed planes
   T* raw = fields + 2 * NF * PE;                  // [2][NR][e1][e2]: their operands
   T* Kw = raw + 2 * NR * PE;                      // [N][N]
+  if constexpr (kDirect) {  // the field planes are the raw buffers: [2][NF][e1][e2], K1
+    raw = fields;
+    Kw = fields + 2 * NF * PE;
+  }
   for (int i = threadIdx.x; i < N * N; i += nthreads) Kw[i] = K.w[i];
 
   // owned columns [A, E) per axis, loaded nodes [lo, min(E + 1, G)), and
@@ -214,12 +230,22 @@ __device__ __forceinline__ void plane_stencil(const Src& src, const Coeff<T> (&c
       q2 = axis2.coeffs(g0, cf, L);
     }
     __pipeline_wait_prior(0);  // this thread's copies of plane g0
-    form_plane(b);
-    if (g0 + 1 < g_end) {  // the next plane's copies, in flight while this one is summed
-      copy_plane(g0 + 1, b ^ 1);
-      __pipeline_commit();
+    if constexpr (!kDirect) {
+      form_plane(b);
+      if (g0 + 1 < g_end) {  // the next plane's copies, in flight while this one is summed
+        copy_plane(g0 + 1, b ^ 1);
+        __pipeline_commit();
+      }
     }
     __syncthreads();  // field plane b holds plane g0
+    if constexpr (kDirect) {
+      // every thread is done with plane g0 - 1, whose field plane takes the
+      // next plane's copies, in flight while this one is summed
+      if (g0 + 1 < g_end) {
+        copy_plane(g0 + 1, b ^ 1);
+        __pipeline_commit();
+      }
+    }
     if (active) {
       const PlaneVals<T, NF> plane{fields + b * NF * PE, PE};
       T y = out.start(pre);

@@ -129,6 +129,7 @@ struct StageFields {
   // their plane g0 starts (base = g0*P12: they are lattice fields), and the
   // fields formed from a node's copies q[r * RE].
   static constexpr int NR = NF > 1 ? 4 : 3;
+  static constexpr bool kRawIsField = false;  // formed from them (plane.cuh)
   __device__ __forceinline__ const T* raw(int r) const {
     return r == 0 ? u0 : r == 1 ? v0 : r == 2 ? kvpp : kvp;
   }

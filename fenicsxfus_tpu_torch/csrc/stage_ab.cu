@@ -43,7 +43,7 @@
 // operand once per plane (the cell before a slab once more); K5b's tile
 // reads the halo again, from L2 where a neighbouring block read it.
 //
-// ops/stage_ab.py::column_plan and ::plane_plan shape the launches; the C
+// ops/stiffness.py::column_plan and ::plane_plan shape the launches; the C
 // entries check the plans (column.cuh::read_column_plan,
 // plane.cuh::read_plane_plan) and return an error for one a block cannot run.
 #include <cuda_runtime.h>
@@ -66,7 +66,7 @@ extern "C" {
 // K5a. kind, dtype and the 32 operand slots as fus_stage (stage.cu), with
 // slot 31 = yA, the output; K5a reads u0, v0, kvp (two-field kinds), kvpp
 // and F0 of each coefficient set. scal: host doubles [alpha, beta]. plan:
-// the 4 ints of ops/stage_ab.py::column_plan. Returns a cudaError_t code (0
+// the 4 ints of ops/stiffness.py::column_plan. Returns a cudaError_t code (0
 // on success).
 int fus_stage_a(int kind, int dtype, const unsigned long long* ptr, const int* ext,
                 const long long* gdims, int p, const double* K1, const double* scal,
@@ -82,7 +82,7 @@ int fus_stage_a(int kind, int dtype, const unsigned long long* ptr, const int* e
 }
 
 // K5b. Arguments as fus_stage, with slot 31 = yA (read); plan: the 8 ints of
-// ops/stage_ab.py::plane_plan.
+// ops/stiffness.py::plane_plan.
 int fus_stage_b(int kind, int dtype, const unsigned long long* ptr, const int* ext,
                 const long long* gdims, int p, const double* K1, const double* scal,
                 int nscal, int final_stage, const int* plan, void* stream, int device) {

@@ -66,7 +66,7 @@ __global__ void __launch_bounds__(kPlaneMaxThreads, (kStageBMinBlocks<KindTraits
                                  SplitStageOut<T, KIND>{{a, L}, a.yA});
 }
 
-// K5a on the column plan (ops/stage_ab.py::column_plan, 4 ints).
+// K5a on the column plan (ops/stiffness.py::column_plan, 4 ints).
 template <typename T>
 cudaError_t launch_stage_a(int kind, const unsigned long long* ptr, const int* ext,
                            const long long* gdims, int p, const double* K1,
@@ -90,7 +90,7 @@ cudaError_t launch_stage_a(int kind, const unsigned long long* ptr, const int* e
   return err;
 }
 
-// K5b on the plane plan (ops/stage_ab.py::plane_plan, 8 ints).
+// K5b on the plane plan (ops/stiffness.py::plane_plan, 8 ints).
 template <typename T>
 cudaError_t launch_stage_b(int kind, const unsigned long long* ptr, const int* ext,
                            const long long* gdims, int p, const double* K1,

@@ -1,8 +1,8 @@
 // The shared-memory tiled stencil of K1 (stiffness.cu), K2 (stage.cu) and K3
 // (step_wave.cu, one work item at a time: wave.cuh).
 //
-// Replaces, for K1, K2 and K3, the one-thread-per-node stencil of
-// lattice.cuh::axis_at (which K4 still runs). Its TPU counterparts
+// Replaces, for K1, K2 and K3, a one-thread-per-node stencil that summed
+// the one or two cells holding each node per axis. Its TPU counterparts
 // are the window walks of fenicsxfus_tpu/ops/pallas_v3.py::apply_v3 and
 // ops/pallas_stage_v3.py::_stage_call: they form the stage fields once per
 // window row in VMEM, keep the N planes of axis 0 resident, and carry the
@@ -185,14 +185,15 @@ struct RingVals {
 // F[f][g0 * plane_stride], and at cell c - 1 one cell stride less (the
 // strides are the kernel's, read from its parameters where they are used).
 // coeffs(g0) reads them for a plane (a node ahead of its use), and term() is
-// lattice.cuh::axis_term on a shared plane, the same arithmetic.
+// the axis's sum on a shared plane: lattice.cuh's cell_sum, coeff_dot and,
+// at an interface, coeff_acc.
 template <typename T, int NF, int A>
 struct ColumnAxis {
   const T* F[NF];
   int k, base, base_prev, stride;
   bool iface;
 
-  // lattice.cuh::axis_coeffs: F1 [G0, e1, G2] at (g0*e1 + c)*G2 + g2, F2
+  // lattice.cuh's layout: F1 [G0, e1, G2] at (g0*e1 + c)*G2 + g2, F2
   // [G0, G1, e2] at (g0*G1 + g1)*e2 + c, e_A = n_A or 1 (cell stride 0)
   static __device__ __forceinline__ long long cell_stride(const Coeff<T>& cf, const Lattice& L) {
     return cf.ext[A] > 1 ? (A == 1 ? L.G2 : 1LL) : 0LL;
@@ -331,7 +332,7 @@ __device__ __forceinline__ void tile_stencil(const Src& src, const Coeff<T> (&cf
   ColumnAxis<T, NF, 2> axis2;
   axis1.init(cf, L, g1, g2, p, col, e2);
   axis2.init(cf, L, g1, g2, p, col, e2);
-  // F0 [e0, G1, G2] at c*G1*G2 + g1*G2 + g2 (lattice.cuh::axis_coeffs)
+  // F0 [e0, G1, G2] at c*G1*G2 + g1*G2 + g2 (lattice.cuh's layout)
   const T* F0[NF];
 #pragma unroll
   for (int f = 0; f < NF; ++f) F0[f] = cf[f].F[0] + (long long)g1 * G2 + g2;
@@ -390,7 +391,7 @@ __device__ __forceinline__ void tile_stencil(const Src& src, const Coeff<T> (&cf
               q1 = axis1.coeffs(g0 + 1, cf, L);
               q2 = axis2.coeffs(g0 + 1, cf, L);
             }
-            // axis 0 as lattice.cuh::axis_term
+            // axis 0: lattice.cuh's cell_sum, coeff_dot, coeff_acc
             cell_sum<T, NF>(cell, 0, 1, k, N, Kw, s);
             T y = coeff_dot<T, NF>(f0, s);
             if (k == 0 && c > 0) y = coeff_acc<T, NF>(y, f0prev, sprev);

@@ -18,8 +18,8 @@ K5b still reads it, for vn and the step update.
 
 ``stage_a_apply``/``stage_b_apply`` are the wrappers: CUDA tensors launch
 ``csrc/stage_ab.cu``; CPU tensors run ``stage_a_plain``/``stage_b_plain``.
-The two kernels walk the lattice each in its own way, and this module
-chooses their launch shapes:
+The two kernels walk the lattice each in its own way, on the launch shapes
+of ``ops/stiffness.py``, which K4a and K4b walk too:
 
 * K5a, the column march of ``csrc/column.cuh``: one thread per (g1, g2)
   column, a block a run of ``columns`` columns and a slab of ``slab`` cells
@@ -33,9 +33,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 
-import numpy as np
 import torch
 
 from .stage import (
@@ -51,163 +49,16 @@ from .stage import (
 )
 from .stiffness import (
     DTYPE_CODES,
-    GRID_MAX,
-    ITEMSIZE,
-    MIN_BLOCKS,
-    SMEM_MAX,
-    SMEM_TARGET,
     check_fields,
     check_launch,
-    lattice_grid,
+    column_plan,
+    column_plan_ints,
     launch_args,
+    plane_plan,
+    plane_plan_ints,
     stiffness_axes12_plain,
     stiffness_axis0_plain,
-    tile_threads,
 )
-
-# ---------------------------------------------------------------- the plans
-
-# K5a's column march (csrc/column.cuh) and K5b's plane tile (csrc/plane.cuh):
-# the starting sizes, which the plans cut to the lattice, to the threads and
-# shared memory of a block and to the card's SM count (MIN_BLOCKS: below it
-# the plans cut the slab or the run first, then the width).
-COLUMN_THREADS = 256  # columns of a K5a block, one thread each
-COLUMN_SLAB = 8  # cells of a K5a block's march along g0
-COLUMN_MAX_THREADS = 512  # csrc/column.cuh kColumnMaxThreads
-PLANE_TILE = (8, 32)  # owned nodes of a K5b tile along g1, g2 (csrc/plane.cuh kPlaneMainT1/T2)
-PLANE_RUN = 16  # g0 planes of a K5b block
-PLANE_MAX_THREADS = 512  # csrc/plane.cuh kPlaneMaxThreads
-
-
-def column_plan(gdims, p: int) -> dict:
-    """The launch shape of K5a on a [G0, G1, G2] lattice of degree p.
-
-    Returns a dict: ``columns``, the (g1, g2) columns of a block, one thread
-    each (the flat index g1*G2 + g2, the last block cut at G1*G2); ``slab``,
-    the cells of a block's march along g0 (the last slab also owns plane
-    G0 - 1; a slab after the first also reads the cell before it);
-    ``grid`` (column blocks, slabs). The march keeps its planes in
-    registers: no shared memory. ``columns`` starts at ``COLUMN_THREADS``
-    and the slab at ``COLUMN_SLAB``, both cut to the lattice; then the slab,
-    and after it the columns, are halved while the grid has fewer than
-    ``MIN_BLOCKS`` blocks. Raises ValueError for a plan a block cannot run."""
-    return dict(_column_plan(tuple(int(g) for g in gdims), int(p), COLUMN_THREADS,
-                             COLUMN_SLAB, MIN_BLOCKS, COLUMN_MAX_THREADS))
-
-
-@functools.lru_cache(maxsize=None)
-def _column_plan(gdims, p, threads, slab, min_blocks, max_threads):
-    n0 = lattice_grid(gdims, p)[0]
-    cols = gdims[1] * gdims[2]
-    C = min(threads, 32 * -(-cols // 32))
-    S = min(slab, n0)
-
-    def grid(C, S):
-        return (-(-cols // C), -(-n0 // S))
-
-    while np.prod(grid(C, S)) < min_blocks and (S > 1 or C > 32):
-        if S > 1:
-            S //= 2
-        else:
-            C = 32 * -(-C // 64)
-    if C % 32 or not 32 <= C <= max_threads:
-        raise ValueError(f"{C} columns a block; a block takes a multiple of 32 up to "
-                         f"{max_threads}")
-    g = grid(C, S)
-    if g[1] > GRID_MAX:
-        raise ValueError(f"grid {g} exceeds {GRID_MAX} blocks along y")
-    return (("columns", C), ("slab", S), ("grid", g))
-
-
-def column_plan_ints(plan: dict) -> ctypes.Array:
-    """The plan as the 4 ints of the C entry (csrc/column.cuh::read_column_plan):
-    columns, slab, grid x, y."""
-    return (ctypes.c_int * 4)(plan["columns"], plan["slab"], *plan["grid"])
-
-
-def plane_smem_bytes(t1: int, t2: int, p: int, nf: int, nr: int, itemsize: int) -> int:
-    """Dynamic shared memory of a t1 × t2 plane tile (csrc/plane.cuh): two
-    planes of the nf fields and two of their nr raw operands, each spanning
-    t + p + 1 nodes per axis, and K1."""
-    N = p + 1
-    return (2 * (nf + nr) * (t1 + p + 1) * (t2 + p + 1) + N * N) * itemsize
-
-
-def plane_plan(gdims, p: int, nf: int, dtype, nr=None) -> dict:
-    """The launch shape of K5b on a [G0, G1, G2] lattice of degree p with
-    ``nf`` stencil fields of ``dtype`` formed from ``nr`` raw operands per
-    node (u0, v0, kvpp and, for two fields, kvp: the default).
-
-    Returns a dict: ``tile`` (t1, t2), the owned nodes of a tile along g1,
-    g2 (whole cells; the last tile of an axis is cut at the lattice's end);
-    ``planes``, the g0 planes of a block's run (the last run cut at G0);
-    ``halo`` (p, 1), the nodes read below and above a tile; ``threads``;
-    ``smem``, the dynamic shared-memory bytes; ``grid`` (tiles along g2,
-    tiles along g1, runs). The tile starts at ``PLANE_TILE`` and the run at
-    ``PLANE_RUN``, both cut to the lattice; the tile is halved (along g1
-    first) until its threads and shared memory fit (``PLANE_MAX_THREADS``,
-    ``SMEM_TARGET``), then the run and after it the tile are halved while
-    the grid has fewer than ``MIN_BLOCKS`` blocks. Raises ValueError for a
-    plan a block cannot run."""
-    nr = int(nr or KIND_RAW[int(nf)])
-    return dict(_plane_plan(tuple(int(g) for g in gdims), int(p), int(nf), nr,
-                            ITEMSIZE[dtype], PLANE_TILE, PLANE_RUN, SMEM_TARGET, MIN_BLOCKS,
-                            PLANE_MAX_THREADS))
-
-
-@functools.lru_cache(maxsize=None)
-def _plane_plan(gdims, p, nf, nr, itemsize, tile_nodes, run, target, min_blocks,
-                max_threads):
-    n = lattice_grid(gdims, p)
-    c1 = min(max(1, tile_nodes[0] // p), n[1])
-    c2 = min(max(1, tile_nodes[1] // p), n[2])
-    R = min(run, gdims[0])
-
-    def grid(c1, c2, R):
-        return (-(-gdims[2] // (c2 * p)), -(-gdims[1] // (c1 * p)), -(-gdims[0] // R))
-
-    def fits(c1, c2):
-        t1, t2 = c1 * p, c2 * p
-        return (tile_threads(t1, t2, p) <= max_threads
-                and plane_smem_bytes(t1, t2, p, nf, nr, itemsize) <= target)
-
-    # halve along g1 first: rows along g2 stay long, for coalesced loads
-    while not fits(c1, c2) and c1 * c2 > 1:
-        if c1 > 1:
-            c1 //= 2
-        else:
-            c2 //= 2
-    while np.prod(grid(c1, c2, R)) < min_blocks and c1 * c2 * R > 1:
-        if R > 1:
-            R //= 2
-        elif c1 > 1:
-            c1 //= 2
-        else:
-            c2 //= 2
-    t1, t2 = c1 * p, c2 * p
-    smem = plane_smem_bytes(t1, t2, p, nf, nr, itemsize)
-    if smem > SMEM_MAX:
-        raise ValueError(
-            f"a {t1} x {t2} plane tile at p={p} with {nf} fields of {itemsize} bytes needs "
-            f"{smem} B of shared memory; a block may have {SMEM_MAX} B"
-        )
-    threads = tile_threads(t1, t2, p)
-    if threads > max_threads:
-        raise ValueError(f"a {t1} x {t2} plane tile at p={p} needs {threads} threads; a block "
-                         f"may have {max_threads}")
-    g = grid(c1, c2, R)
-    if max(g[1:]) > GRID_MAX:
-        raise ValueError(f"grid {g} exceeds {GRID_MAX} blocks along y or z")
-    return (("tile", (t1, t2)), ("planes", R), ("halo", (p, 1)), ("threads", threads),
-            ("smem", smem), ("grid", g))
-
-
-def plane_plan_ints(plan: dict) -> ctypes.Array:
-    """The plan as the 8 ints of the C entry (csrc/plane.cuh::read_plane_plan):
-    t1, t2, planes, threads, smem bytes, grid x, y, z."""
-    return (ctypes.c_int * 8)(*plan["tile"], plan["planes"], plan["threads"], plan["smem"],
-                              *plan["grid"])
-
 
 def _fields(kind, u0, v0, kvp, kvpp, scal):
     """The stiffness fields of a stage: [un] or [un, vn]."""
@@ -279,7 +130,8 @@ def stage_b_apply(kind, u0, v0, kvp, kvpp, prev, yA, Fs, dense, facets, scal, p,
         outs = (torch.empty_like(u0), None, None)
     ptrs, ext = stage_pointers(u0, v0, kvp, kvpp, prev, Fs, dense, facets, outs + (yA,), exts)
     gd, K1, stream, dev = launch_args(u0, p)
-    plan = plane_plan_ints(plane_plan(u0.shape, p, KIND_FIELDS[kind], u0.dtype))
+    nf = KIND_FIELDS[kind]
+    plan = plane_plan_ints(plane_plan(u0.shape, p, nf, u0.dtype, nr=KIND_RAW[nf]))
     rc = lib.fus_stage_b(
         KIND_CODES[kind], DTYPE_CODES[u0.dtype], ptrs, ext, gd, p, K1,
         (ctypes.c_double * len(scal))(*scal), len(scal), int(final), plan, stream, dev,

@@ -20,7 +20,10 @@ kernel in ``csrc/stiffness.cu`` (the shared-memory tiled stencil of
 K4a/K4b: the same operator split at the axis-0 / axes-1,2 boundary into two
 kernels (``csrc/stiffness_ab.cu``), the port of the JAX package's two-kernel
 ``LatticePallasStiffness.apply`` (``_kernel_axis0``, ``_kernel_axes12``).
-``stiffness_apply`` takes that path when ``FUS_V3=0``.
+``stiffness_apply`` takes that path when ``FUS_V3=0``. K4a runs the axis-0
+column march of ``csrc/column.cuh`` (``column_plan``) and K4b the in-plane
+plane tile of ``csrc/plane.cuh`` (``plane_plan``), the two walks of the
+two-kernel stage (``ops/stage_ab.py``), whose plans live here.
 """
 
 from __future__ import annotations
@@ -217,6 +220,162 @@ def plan_ints(plan: dict) -> ctypes.Array:
                               *plan["grid"])
 
 
+# ------------------------------------------------------- column and plane plans
+
+# The two walks of the split kernels: the axis-0 column march of K4a and K5a
+# (csrc/column.cuh) and the in-plane plane tile of K4b and K5b
+# (csrc/plane.cuh). These are the starting sizes, which the plans cut to the
+# lattice, to the threads and shared memory of a block and to the card's SM
+# count (MIN_BLOCKS: below it the plans cut the slab or the run first, then
+# the width).
+COLUMN_THREADS = 256  # columns of a column-march block, one thread each
+COLUMN_SLAB = 8  # cells of a column-march block's march along g0
+COLUMN_MAX_THREADS = 512  # csrc/column.cuh kColumnMaxThreads
+PLANE_TILE = (8, 32)  # owned nodes of a plane tile along g1, g2 (csrc/plane.cuh kPlaneMainT1/T2)
+PLANE_RUN = 16  # g0 planes of a plane-tile block
+PLANE_MAX_THREADS = 512  # csrc/plane.cuh kPlaneMaxThreads
+
+
+def column_plan(gdims, p: int) -> dict:
+    """The launch shape of the column march (K4a, K5a) on a [G0, G1, G2]
+    lattice of degree p.
+
+    Returns a dict: ``columns``, the (g1, g2) columns of a block, one thread
+    each (the flat index g1*G2 + g2, the last block cut at G1*G2); ``slab``,
+    the cells of a block's march along g0 (the last slab also owns plane
+    G0 - 1; a slab after the first also reads the cell before it);
+    ``grid`` (column blocks, slabs). The march keeps its planes in
+    registers: no shared memory. ``columns`` starts at ``COLUMN_THREADS``
+    and the slab at ``COLUMN_SLAB``, both cut to the lattice; then the slab,
+    and after it the columns, are halved while the grid has fewer than
+    ``MIN_BLOCKS`` blocks. Raises ValueError for a plan a block cannot run."""
+    return dict(_column_plan(tuple(int(g) for g in gdims), int(p), COLUMN_THREADS,
+                             COLUMN_SLAB, MIN_BLOCKS, COLUMN_MAX_THREADS))
+
+
+@functools.lru_cache(maxsize=None)
+def _column_plan(gdims, p, threads, slab, min_blocks, max_threads):
+    n0 = lattice_grid(gdims, p)[0]
+    cols = gdims[1] * gdims[2]
+    C = min(threads, 32 * -(-cols // 32))
+    S = min(slab, n0)
+
+    def grid(C, S):
+        return (-(-cols // C), -(-n0 // S))
+
+    while np.prod(grid(C, S)) < min_blocks and (S > 1 or C > 32):
+        if S > 1:
+            S //= 2
+        else:
+            C = 32 * -(-C // 64)
+    if C % 32 or not 32 <= C <= max_threads:
+        raise ValueError(f"{C} columns a block; a block takes a multiple of 32 up to "
+                         f"{max_threads}")
+    g = grid(C, S)
+    if g[1] > GRID_MAX:
+        raise ValueError(f"grid {g} exceeds {GRID_MAX} blocks along y")
+    return (("columns", C), ("slab", S), ("grid", g))
+
+
+def column_plan_ints(plan: dict) -> ctypes.Array:
+    """The plan as the 4 ints of the C entries (csrc/column.cuh::read_column_plan):
+    columns, slab, grid x, y."""
+    return (ctypes.c_int * 4)(plan["columns"], plan["slab"], *plan["grid"])
+
+
+def plane_smem_bytes(t1: int, t2: int, p: int, nf: int, nr: int, itemsize: int) -> int:
+    """Dynamic shared memory of a t1 × t2 plane tile (csrc/plane.cuh): two
+    planes of the nf fields and two of their nr raw operands, each spanning
+    t + p + 1 nodes per axis, and K1."""
+    N = p + 1
+    return (2 * (nf + nr) * (t1 + p + 1) * (t2 + p + 1) + N * N) * itemsize
+
+
+def plane_plan(gdims, p: int, nf: int, dtype, nr=None) -> dict:
+    """The launch shape of the plane tile (K4b, K5b) on a [G0, G1, G2]
+    lattice of degree p with ``nf`` stencil fields of ``dtype`` formed from
+    ``nr`` raw operands per node that take shared planes of their own (the
+    default nf; K5b: u0, v0, kvpp and, for two fields, kvp; K4b: 0, its
+    fields are its raw operands).
+
+    Returns a dict: ``tile`` (t1, t2), the owned nodes of a tile along g1,
+    g2 (whole cells; the last tile of an axis is cut at the lattice's end);
+    ``planes``, the g0 planes of a block's run (the last run cut at G0);
+    ``halo`` (p, 1), the nodes read below and above a tile; ``threads``;
+    ``smem``, the dynamic shared-memory bytes; ``grid`` (tiles along g2,
+    tiles along g1, runs). The tile starts at ``PLANE_TILE`` and the run at
+    ``PLANE_RUN``, both cut to the lattice; the tile is halved (along g1
+    first) until its threads and shared memory fit (``PLANE_MAX_THREADS``,
+    ``SMEM_TARGET``), then the run and after it the tile are halved while
+    the grid has fewer than ``MIN_BLOCKS`` blocks. Raises ValueError for a
+    plan a block cannot run."""
+    nr = int(nf if nr is None else nr)
+    return dict(_plane_plan(tuple(int(g) for g in gdims), int(p), int(nf), nr,
+                            ITEMSIZE[dtype], PLANE_TILE, PLANE_RUN, SMEM_TARGET, MIN_BLOCKS,
+                            PLANE_MAX_THREADS))
+
+
+@functools.lru_cache(maxsize=None)
+def _plane_plan(gdims, p, nf, nr, itemsize, tile_nodes, run, target, min_blocks,
+                max_threads):
+    n = lattice_grid(gdims, p)
+    c1 = min(max(1, tile_nodes[0] // p), n[1])
+    c2 = min(max(1, tile_nodes[1] // p), n[2])
+    R = min(run, gdims[0])
+
+    def grid(c1, c2, R):
+        return (-(-gdims[2] // (c2 * p)), -(-gdims[1] // (c1 * p)), -(-gdims[0] // R))
+
+    def fits(c1, c2):
+        t1, t2 = c1 * p, c2 * p
+        return (tile_threads(t1, t2, p) <= max_threads
+                and plane_smem_bytes(t1, t2, p, nf, nr, itemsize) <= target)
+
+    # halve along g1 first: rows along g2 stay long, for coalesced loads
+    while not fits(c1, c2) and c1 * c2 > 1:
+        if c1 > 1:
+            c1 //= 2
+        else:
+            c2 //= 2
+    while np.prod(grid(c1, c2, R)) < min_blocks and c1 * c2 * R > 1:
+        if R > 1:
+            R //= 2
+        elif c1 > 1:
+            c1 //= 2
+        else:
+            c2 //= 2
+    t1, t2 = c1 * p, c2 * p
+    smem = plane_smem_bytes(t1, t2, p, nf, nr, itemsize)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"a {t1} x {t2} plane tile at p={p} with {nf} fields of {itemsize} bytes needs "
+            f"{smem} B of shared memory; a block may have {SMEM_MAX} B"
+        )
+    threads = tile_threads(t1, t2, p)
+    if threads > max_threads:
+        raise ValueError(f"a {t1} x {t2} plane tile at p={p} needs {threads} threads; a block "
+                         f"may have {max_threads}")
+    g = grid(c1, c2, R)
+    if max(g[1:]) > GRID_MAX:
+        raise ValueError(f"grid {g} exceeds {GRID_MAX} blocks along y or z")
+    return (("tile", (t1, t2)), ("planes", R), ("halo", (p, 1)), ("threads", threads),
+            ("smem", smem), ("grid", g))
+
+
+def axes12_plan(gdims, p: int, nf: int, dtype) -> dict:
+    """K4b's plane plan: no raw operand planes, since its fields are copied
+    straight into the planes the sums read (csrc/lattice.cuh
+    FieldLoad::kRawIsField)."""
+    return plane_plan(gdims, p, nf, dtype, nr=0)
+
+
+def plane_plan_ints(plan: dict) -> ctypes.Array:
+    """The plan as the 8 ints of the C entries (csrc/plane.cuh::read_plane_plan):
+    t1, t2, planes, threads, smem bytes, grid x, y, z."""
+    return (ctypes.c_int * 8)(*plan["tile"], plan["planes"], plan["threads"], plan["smem"],
+                              *plan["grid"])
+
+
 # ------------------------------------------------------------- plain version
 
 
@@ -338,11 +497,11 @@ def _check_stiffness(xs, Fs, p: int, name: str):
     return exts
 
 
-def _launch(entry, name, xs, Fs, exts, p, outs, plan=()):
+def _launch(entry, name, xs, Fs, exts, p, outs, plan):
     """Launch the C entry ``entry`` of a stiffness kernel on the current
     stream: fields, coefficients and extents, then the device pointers
-    ``outs``, the lattice, and ``plan`` (K1's tile plan ints, if any); raise
-    if the launch failed."""
+    ``outs``, the lattice, and ``plan`` (the kernel's plan ints); raise if
+    the launch failed."""
     from .._build import library
 
     lib = library()
@@ -388,13 +547,16 @@ def stiffness_apply(xs, Fs, p: int) -> torch.Tensor:
 
 def stiffness_axis0_apply(xs, Fs, p: int) -> torch.Tensor:
     """yA = the axis-0 term of Σ_f K_{F_f}(x_f), the first kernel of the
-    two-kernel stiffness. CUDA tensors launch K4a (``csrc/stiffness_ab.cu``)
-    on the current stream; CPU tensors run ``stiffness_axis0_plain``."""
+    two-kernel stiffness. CUDA tensors launch K4a (``csrc/stiffness_ab.cu``,
+    shaped by ``column_plan``) on the current stream; CPU tensors run
+    ``stiffness_axis0_plain``."""
     exts = _check_stiffness(xs, Fs, p, "K4a stiffness")
     if xs[0].device.type == "cpu":
         return stiffness_axis0_plain(xs, Fs, p)
     yA = torch.empty_like(xs[0])  # every node is written
-    _launch("fus_stiffness_axis0", "K4a stiffness", xs, Fs, exts, p, [yA])
+    plan = column_plan(xs[0].shape, p)
+    _launch("fus_stiffness_axis0", "K4a stiffness", xs, Fs, exts, p, [yA],
+            [column_plan_ints(plan)])
     stiffness_axis0_apply.launches += 1
     return yA
 
@@ -403,13 +565,15 @@ def stiffness_axes12_apply(xs, Fs, yA, p: int) -> torch.Tensor:
     """yA + the axis-1 and axis-2 terms of Σ_f K_{F_f}(x_f), written in place
     into ``yA`` (the TPU kernel's aliased output) and returned: the second
     kernel of the two-kernel stiffness. CUDA tensors launch K4b
-    (``csrc/stiffness_ab.cu``) on the current stream; CPU tensors run
-    ``stiffness_axes12_plain``."""
+    (``csrc/stiffness_ab.cu``, shaped by ``axes12_plan``) on the current
+    stream; CPU tensors run ``stiffness_axes12_plain``."""
     exts = _check_stiffness(xs, Fs, p, "K4b stiffness")
     check_fields([yA], tuple(xs[0].shape), xs[0].dtype, xs[0].device)
     if xs[0].device.type == "cpu":
         return stiffness_axes12_plain(xs, Fs, yA, p)
-    _launch("fus_stiffness_axes12", "K4b stiffness", xs, Fs, exts, p, [yA, yA])
+    plan = axes12_plan(xs[0].shape, p, len(xs), xs[0].dtype)
+    _launch("fus_stiffness_axes12", "K4b stiffness", xs, Fs, exts, p, [yA, yA],
+            [plane_plan_ints(plan)])
     stiffness_axes12_apply.launches += 1
     return yA
 

@@ -1,6 +1,6 @@
-"""Whether two checkouts compile the tiled K1/K2 and K3 kernels to the same
-machine code (SASS), kernel by kernel, on a machine with ``nvcc`` and
-``cuobjdump``.
+"""Whether two checkouts compile the kernels of K1, K2, K3, K5a and K5b (the
+tiled stencil, the wavefront and the two walks) to the same machine code
+(SASS), kernel by kernel, on a machine with ``nvcc`` and ``cuobjdump``.
 
     python3 fenicsxfus_tpu_torch/tools/same_sass.py <tree_a> <tree_b>
 
@@ -16,7 +16,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-KERNELS = ("stiffness_tile_kernel", "stage_tile_kernel", "step_wave_kernel")
+KERNELS = ("stiffness_tile_kernel", "stage_tile_kernel", "step_wave_kernel", "stage_a_kernel",
+           "stage_b_kernel")
 
 
 def library(tree: str) -> Path:

@@ -1,29 +1,34 @@
-"""K5a and K5b (the two-kernel RK stage: the column march of
-``csrc/column.cuh`` and the plane tile of ``csrc/plane.cuh``) and variants
-of their design on one CUDA device, at the shapes of their main paths:
+"""The split kernels and variants of their design on one CUDA device, at the
+shapes of their main paths, fp32: K5a and K5b (the two-kernel RK stage)
 ``lossy``, ``westervelt`` and ``focused`` non-final on the HITU lattice
 (80,47,47) p=4 (unit cells) and ``linear`` non-final on the 104³ p=4
-headline lattice, fp32, beside the tiled K2 on the same operands.
+headline lattice, beside the tiled K2 on the same operands; K4a and K4b (the
+two-kernel stiffness) on the headline lattice, one field with a constant
+coefficient and two fields (constant and DG-0), beside the tiled K1. K4a
+and K5a run the column march of ``csrc/column.cuh``, K4b and K5b the plane
+tile of ``csrc/plane.cuh``.
 
     python3 fenicsxfus_tpu_torch/tools/split_variants.py [variant ...]
-    python3 fenicsxfus_tpu_torch/tools/split_variants.py --in <tree> time
+    python3 fenicsxfus_tpu_torch/tools/split_variants.py --in <tree> time|k4
 
 A source variant (``SOURCE_VARIANTS``) is a copy of this package with a few
 changes to the kernel sources or the plans' module sizes, built and run in
-its own process by the harness of ``variants.py``. The committed sources
-also run the plan variants (``PLAN_VARIANTS``: the module sizes of
-``ops/stage_ab.py`` that keep the compile-time main-path kernels: columns
-and slab of K5a, planes of a K5b run). Every row holds the kernels to their
-plain versions first (and K5a -> K5b to K2 bit for bit), then prints three
-medians of 10 launches each (CUDA events). The second form times the
-package of another checkout (``<tree>``, e.g. an unpacked ``git archive``
-of the parent) on the same operands, so that two commits compare in one
-process each, in turns.
+its own process by the harness of ``variants.py``; a variant whose name
+starts with "K4" times K4 alone, the others K5. The committed sources time
+both and also run the plan variants (``PLAN_VARIANTS``: the module sizes of
+``ops/stiffness.py`` that keep the compile-time main-path kernels: columns
+and slab of the column march, planes of a plane-tile run). Every row holds
+the kernels to their plain versions first (and K5a -> K5b to K2, K4a -> K4b
+to K1, bit for bit), then prints three medians of 10 launches each (CUDA
+events; for K4 also the device's time alone, ``variants.device_ms``). The
+second form times the package of another checkout (``<tree>``, e.g. an
+unpacked ``git archive`` of the parent) on the same operands, K5 (``time``)
+or K4 (``k4``), so that two commits compare in one process each, in turns.
 """
 
-from variants import main, median_ms
+from variants import device_ms, main, median_ms
 
-STAGE_AB = "../ops/stage_ab.py"
+PLANS = "../ops/stiffness.py"
 # thread 0 of each K5b block adds the clock cycles of each phase of a plane
 # (the output operands' loads issued and the copy wait, form and the next
 # copies, barrier, sums and epilogue)
@@ -59,7 +64,7 @@ SOURCE_VARIANTS = {
     "committed": [],
     "K5b tile 16x32": [
         ("plane.cuh", "kPlaneMainT1 = 8, kPlaneMainT2 = 32;", "kPlaneMainT1 = 16, kPlaneMainT2 = 32;"),
-        (STAGE_AB, "PLANE_TILE = (8, 32)", "PLANE_TILE = (16, 32)")],
+        (PLANS, "PLANE_TILE = (8, 32)", "PLANE_TILE = (16, 32)")],
     "K5b two-field kinds in 64 registers": [
         ("stage_ab.cuh", "NF == 1 && MAIN ? 2 : 1;", "MAIN ? 2 : 1;")],
     "K5b one-field kind in 128 registers": [
@@ -67,10 +72,11 @@ SOURCE_VARIANTS = {
     "K5b two-field kinds in 85 registers (3 blocks of 256 per SM)": [
         ("stage_ab.cuh", "NF == 1 && MAIN ? 2 : 1;", "NF == 1 && MAIN ? 4 : 3;"),
         ("plane.cuh", "kPlaneMaxThreads = 512;", "kPlaneMaxThreads = 256;"),
-        (STAGE_AB, "PLANE_MAX_THREADS = 512", "PLANE_MAX_THREADS = 256")],
+        (PLANS, "PLANE_MAX_THREADS = 512", "PLANE_MAX_THREADS = 256")],
     "K5b without the next plane in flight": [
-        ("plane.cuh", "      __pipeline_commit();\n    }\n    __syncthreads();  // field plane b",
-         "      __pipeline_commit();\n      __pipeline_wait_prior(0);\n    }\n"
+        ("plane.cuh",
+         "        __pipeline_commit();\n      }\n    }\n    __syncthreads();  // field plane b",
+         "        __pipeline_commit();\n        __pipeline_wait_prior(0);\n      }\n    }\n"
          "    __syncthreads();  // field plane b")],
     "K5a 40 registers (3 blocks of 512 per SM)": [
         ("column.cuh", "kColumnMinBlocks = 1;", "kColumnMinBlocks = 3;")],
@@ -83,8 +89,25 @@ SOURCE_VARIANTS = {
          "        if (j < N) load((c + 1) * p + j, q[j - 1]);\n      coeff0(c + 1, f0next);\n"
          "      column_cell_sum<T, NF, NMAX>(x, p, N, Kw, sprev);\n")],
     "clocked": CLOCKED,
+    # K4 alone: the committed sources, then one change each
+    "K4 as committed": [],
+    "K4a slab 4": [(PLANS, "COLUMN_SLAB = 8", "COLUMN_SLAB = 4")],
+    # K4b's source copied into planes of raw operands and formed from them
+    # (the identity) into the field planes, as K5b's are
+    "K4b raw planes formed": [
+        ("lattice.cuh", "static constexpr bool kRawIsField = true;",
+         "static constexpr bool kRawIsField = false;"),
+        (PLANS, "return plane_plan(gdims, p, nf, dtype, nr=0)",
+         "return plane_plan(gdims, p, nf, dtype)")],
+    "K4b in 128 registers": [
+        ("stiffness_ab.cu", "kAxes12MinBlocks = MAIN ? 2 : 1;", "kAxes12MinBlocks = 1;")],
+    "K4b two fields in 128 registers": [
+        ("stiffness_ab.cu", "__launch_bounds__(kPlaneMaxThreads, kAxes12MinBlocks<MAIN>)",
+         "__launch_bounds__(kPlaneMaxThreads, (NF == 1 && MAIN ? 2 : 1))")],
+    "K4a 40 registers (3 blocks of 512 per SM)": [
+        ("column.cuh", "kColumnMinBlocks = 1;", "kColumnMinBlocks = 3;")],
 }
-# (label, {module size of ops/stage_ab.py: value}), run on the committed sources
+# (label, {module size of ops/stiffness.py: value}), run on the committed sources
 PLAN_VARIANTS = [
     ("K5a 128 columns", {"COLUMN_THREADS": 128}),
     ("K5a 512 columns", {"COLUMN_THREADS": 512}),
@@ -94,24 +117,27 @@ PLAN_VARIANTS = [
     ("K5b run 32", {"PLANE_RUN": 32}),
 ]
 PTXAS = ("stage_a_kernelIfLi3ELb1E", "stage_a_kernelIfLi0ELb1E", "stage_b_kernelIfLi3ELb1E",
-         "stage_b_kernelIfLi0ELb1E")
+         "stage_b_kernelIfLi0ELb1E", "stiffness_axis0_kernelIfLi1ELb1E",
+         "stiffness_axis0_kernelIfLi2ELb1E", "stiffness_axes12_kernelIfLi1ELb1E",
+         "stiffness_axes12_kernelIfLi2ELb1E")
 
 
 def measure(mode: str) -> None:
-    """Run in a variant's process: the timings of K5a, K5b and K2 (see
-    above); ``mode`` "plans" adds the plan variants."""
+    """Run in a variant's process: the timings of K5a, K5b and K2 (mode
+    "time"), of K4a, K4b and K1 (mode "k4"), or of both and under each plan
+    variant (mode "plans"; see above)."""
     import ctypes
 
     import numpy as np
     import torch
 
     from fenicsxfus_tpu_torch._build import library
-    from fenicsxfus_tpu_torch.ops import stage_ab
+    from fenicsxfus_tpu_torch.ops import stage_ab, stiffness
     from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
     from fenicsxfus_tpu_torch.ops.stage import (
         KIND_DENSE, KIND_FACET, KIND_FIELDS, pack_facet_vector, stage_apply,
     )
-    from fenicsxfus_tpu_torch.ops.stiffness import pack_const
+    from fenicsxfus_tpu_torch.ops.stiffness import pack_const, pack_field
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -145,18 +171,30 @@ def measure(mode: str) -> None:
     def rel(a, b) -> float:
         return float((a.double() - b.double()).abs().max() / b.double().abs().max())
 
-    cases = {f"{kind} HITU": stage_args(kind, (80, 47, 47), 1.0, 1.0)
-             for kind in ("lossy", "westervelt", "focused")}
-    cases["linear headline"] = stage_args("linear", (104,) * 3, 0.12 / 104, 1e-3)
+    def medians(fn) -> str:
+        return " / ".join(f"{median_ms(fn):.4f}" for _ in range(3)) + " ms"
+
+    k5_cases, k4_cases = {}, {}
+    if mode in ("time", "plans"):
+        k5_cases = {f"{kind} HITU": stage_args(kind, (80, 47, 47), 1.0, 1.0)
+                    for kind in ("lossy", "westervelt", "focused")}
+        k5_cases["linear headline"] = stage_args("linear", (104,) * 3, 0.12 / 104, 1e-3)
+    if mode in ("k4", "plans"):  # chip_smoke.py [9]'s headline lattice and coefficient
+        lat = LatticeStiffness((104,) * 3, 4, (0.12 / 104,) * 3, torch.float32)
+        xs = [torch.randn(lat.gdims, generator=gen, device=dev) for _ in range(2)]
+        F = [pack_const(lat, 1e-3, dev), pack_field(lat, rng.uniform(0.5, 2.0, 104**3) * 1e-3, dev)]
+        k4_cases = {"1 field headline": ([xs[0]], F[:1]), "2 fields headline": (xs, F)}
     clk = getattr(library(), "fus_plane_clk", None)  # the "clocked" variant's
     rows = [("as built", {})] + (PLAN_VARIANTS if mode == "plans" else [])
-    base = {name: getattr(stage_ab, name) for name in
-            ("COLUMN_THREADS", "COLUMN_SLAB", "PLANE_RUN") if hasattr(stage_ab, name)}
+    # the plans' module sizes: in ops/stiffness.py, or in ops/stage_ab.py in
+    # a checkout from before they moved
+    home = stiffness if hasattr(stiffness, "COLUMN_THREADS") else stage_ab
+    base = {name: getattr(home, name) for name in ("COLUMN_THREADS", "COLUMN_SLAB", "PLANE_RUN")}
     for label, sizes in rows:
         for name, value in dict(base, **sizes).items():
-            setattr(stage_ab, name, value)
+            setattr(home, name, value)
         out = []
-        for case, a in cases.items():
+        for case, a in k5_cases.items():
             ka = {k: a[k] for k in ("kind", "u0", "v0", "kvp", "kvpp", "Fs", "scal", "p")}
             yA = stage_ab.stage_a_apply(**ka)
             kv = stage_ab.stage_b_apply(yA=yA, **a)
@@ -173,17 +211,36 @@ def measure(mode: str) -> None:
             for name, fn in (("K5a", lambda: stage_ab.stage_a_apply(**ka)),
                              ("K5b", lambda: stage_ab.stage_b_apply(yA=yA, **a)),
                              ("K2", lambda: stage_apply(**a))):
-                out.append(f"{name} {case} "
-                           + " / ".join(f"{median_ms(fn):.4f}" for _ in range(3)) + " ms")
+                out.append(f"{name} {case} {medians(fn)}")
                 if clk is not None and name == "K5b":
                     torch.cuda.synchronize()
                     clk(buf)
                     n = max(buf[4], 1)
                     out.append("K5b cycles per plane of thread 0: wait %.0f, form+copy %.0f, "
                                "barrier %.0f, sums+epilogue %.0f" % tuple(buf[i] / n for i in range(4)))
+        for case, (x, Fs) in k4_cases.items():
+            yA = stiffness.stiffness_axis0_apply(x, Fs, 4)
+            ref = stiffness.stiffness_axes12_plain(x, Fs, yA.clone(), 4)
+            errs = (rel(yA, stiffness.stiffness_axis0_plain(x, Fs, 4)),
+                    rel(stiffness.stiffness_axes12_apply(x, Fs, yA, 4), ref))
+            if not max(errs) <= 1e-5:
+                raise AssertionError(f"{label} {case}: {errs} against the plain versions")
+            if not torch.equal(yA, stiffness.stiffness_apply(x, Fs, 4)):
+                raise AssertionError(f"{label} {case}: K4a -> K4b differs from K1")
+            # K4b in place on one scratch yA, as the two-kernel path runs it;
+            # the device's time alone after the three medians
+            for name, fn in (("K4a", lambda: stiffness.stiffness_axis0_apply(x, Fs, 4)),
+                             ("K4b", lambda: stiffness.stiffness_axes12_apply(x, Fs, yA, 4)),
+                             ("K1", lambda: stiffness.stiffness_apply(x, Fs, 4))):
+                out.append(f"{name} {case} {medians(fn)} (device {device_ms(fn):.4f})")
         print(f"  {label}: " + "; ".join(out), flush=True)
 
 
+def mode(name: str) -> str:
+    """What a variant's process times: everything (the committed sources),
+    K4 (the K4 variants) or K5."""
+    return "plans" if name == "committed" else "k4" if name.startswith("K4") else "time"
+
+
 if __name__ == "__main__":
-    main(__file__, SOURCE_VARIANTS, PTXAS, measure,
-         lambda n: "plans" if n == "committed" else "time")
+    main(__file__, SOURCE_VARIANTS, PTXAS, measure, mode)

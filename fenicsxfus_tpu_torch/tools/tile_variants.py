@@ -53,7 +53,8 @@ SOURCE_VARIANTS = {
     "80 registers (384 threads a block)": [
         ("tile.cuh", "kTileMinBlocks = 1;", "kTileMinBlocks = 2;"),
         ("tile.cuh", "kTileMaxThreads = 512;", "kTileMaxThreads = 384;"),
-        ("../ops/stiffness.py", "MAX_THREADS = 512", "MAX_THREADS = 384")],
+        ("../ops/stiffness.py", "MAX_THREADS = 512  # threads of a block",
+         "MAX_THREADS = 384  # threads of a block")],
     "clocked": CLOCKED,
     # ablations: each leaves out one part of the work, so its result is wrong
     # and not checked; the time it saves is that part's share

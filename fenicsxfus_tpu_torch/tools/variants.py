@@ -53,6 +53,27 @@ def median_ms(fn, runs: int = 10) -> float:
     return float(np.median(ts))
 
 
+def device_ms(fn, runs: int = 10, cycles: int = 4_000_000) -> float:
+    """As ``median_ms``, but with the stream held busy (``torch.cuda._sleep``
+    of ``cycles`` clocks, about 2 ms) while the host enqueues the events and
+    ``fn``'s launches, so that the events time the device alone and not the
+    wrapper's host time before its launch. ``fn`` must not synchronize."""
+    import numpy as np
+    import torch
+
+    fn()
+    ts = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
 def ptxas_lines(log: str, entries) -> list:
     """The register and spill lines of ptxas for the kernels whose mangled
     names contain one of ``entries``, each after the start of that name."""

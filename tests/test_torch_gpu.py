@@ -205,8 +205,8 @@ EQUAL_GRIDS = [(GRID, "default"), ((6, 4, 16), "main-path tile")]
 def test_split_and_wave_equal_tiled_k2_bit_for_bit(grid, plan, kind, dtype, cuda, monkeypatch):
     """Every kernel rounds the per-node arithmetic alike (lattice.cuh's
     written-out roundings): K5a -> K5b equals the tiled K2 and K3 equals
-    four tiled K2 launches bit for bit, and for ``linear`` K4a -> K4b
-    equals the tiled K1."""
+    four tiled K2 launches bit for bit, and K4a -> K4b on the stage's
+    fields and coefficients equals the tiled K1."""
     _use_plan(plan, monkeypatch)
     lat = LatticeStiffness(grid, 4, (1.0, 1.0, 1.0), dtype)
     rng = np.random.default_rng(len(kind) + 7)
@@ -225,11 +225,10 @@ def test_split_and_wave_equal_tiled_k2_bit_for_bit(grid, plan, kind, dtype, cuda
         k2 = step_wave_plain(**wave, stage_fn=stage_apply)
         step_wave_check()
         assert torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1])
-        if kind == "linear":
-            x = [u0, v0]
-            for xs, F in ((x[:1], Fs[:1]), (x, [Fs[0], Fs[0]])):
-                y = stiffness_axes12_apply(xs, F, stiffness_axis0_apply(xs, F, 4), 4)
-                assert torch.equal(y, stiffness_apply(xs, F, 4))
+        x = [u0, v0]
+        for xs, F in ((x[:1], Fs[:1]), (x, [Fs[0], Fs[-1]])):
+            y = stiffness_axes12_apply(xs, F, stiffness_axis0_apply(xs, F, 4), 4)
+            assert torch.equal(y, stiffness_apply(xs, F, 4))
 
 
 def test_refused_plan_raises(cuda, monkeypatch):
@@ -322,13 +321,15 @@ SPLIT_PLANS = ["default", "main-path", "general"]
 
 
 def _use_split_plan(plan, monkeypatch):
+    """The walks' plans (ops/stiffness.py::column_plan, plane_plan, which K4
+    and K5 share) at ``plan``'s sizes."""
     if plan != "default":
-        monkeypatch.setattr(stage_ab, "MIN_BLOCKS", 1)
+        monkeypatch.setattr(stiffness, "MIN_BLOCKS", 1)
     if plan == "general":
-        monkeypatch.setattr(stage_ab, "COLUMN_THREADS", 64)
-        monkeypatch.setattr(stage_ab, "COLUMN_SLAB", 3)
-        monkeypatch.setattr(stage_ab, "PLANE_TILE", (8, 16))
-        monkeypatch.setattr(stage_ab, "PLANE_RUN", 3)
+        monkeypatch.setattr(stiffness, "COLUMN_THREADS", 64)
+        monkeypatch.setattr(stiffness, "COLUMN_SLAB", 3)
+        monkeypatch.setattr(stiffness, "PLANE_TILE", (8, 16))
+        monkeypatch.setattr(stiffness, "PLANE_RUN", 3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -354,6 +355,67 @@ def test_k5_walks_match_plain(grid, h, plan, kind, degree, dtype, cuda, monkeypa
         ref = stage_b_plain(kind, u0, v0, kvp, kvpp, prev, yA, Fs, dense, facets, scal, p, final)
         for a, b in (zip(got, ref) if final else [(got, ref)]):
             assert _rel(a, b) < TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("degree", range(1, 9))
+@pytest.mark.parametrize("plan", SPLIT_PLANS)
+@pytest.mark.parametrize("grid,h", SPLIT_GRIDS)
+def test_k4_walks_match_plain(grid, h, plan, degree, dtype, cuda, monkeypatch):
+    """K4a (the column march) and K4b (the plane tile, in place over yA)
+    against their plain versions, and K4a -> K4b equal to the tiled K1 bit
+    for bit: one field with a constant and with a DG-0 coefficient, and two
+    fields, on the walks' lattices and plans."""
+    _use_split_plan(plan, monkeypatch)
+    lat = LatticeStiffness(grid, degree, h, dtype)
+    rng = np.random.default_rng(degree + 30)
+    Fs = [pack_const(lat, 1.7, cuda),
+          pack_field(lat, rng.uniform(0.5, 2.0, int(np.prod(grid))), cuda)]
+    xs = [torch.as_tensor(rng.standard_normal(lat.gdims), dtype=dtype, device=cuda)
+          for _ in range(2)]
+    for x_in, F_in in (([xs[0]], Fs[:1]), ([xs[1]], Fs[1:]), (xs, Fs)):
+        before = stiffness_axis0_apply.launches, stiffness_axes12_apply.launches
+        yA = stiffness_axis0_apply(x_in, F_in, degree)
+        assert _rel(yA, stiffness_axis0_plain(x_in, F_in, degree)) < TOLS[dtype]
+        ref = stiffness_axes12_plain(x_in, F_in, yA.clone(), degree)
+        y = stiffness_axes12_apply(x_in, F_in, yA, degree)
+        assert y.data_ptr() == yA.data_ptr()  # in place, as the TPU kernel aliases it
+        assert (stiffness_axis0_apply.launches, stiffness_axes12_apply.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert _rel(y, ref) < TOLS[dtype]
+        assert torch.equal(y, stiffness_apply(x_in, F_in, degree))
+
+
+def test_k4_refused_plan_raises(cuda, monkeypatch):
+    """A K4a plan the C entry refuses (a grid that leaves columns or cells
+    without an owner) and K4b plans the C entry or the card refuses (a grid
+    short of the planes, more shared memory than a block may have) raise,
+    count no launch, write nothing, and leave the next launch right."""
+    lat = LatticeStiffness(GRID, 4, (1.0, 1.0, 1.0), torch.float32)
+    rng = np.random.default_rng(5)
+    F = pack_field(lat, rng.uniform(0.5, 2.0, int(np.prod(GRID))), cuda)
+    x = torch.as_tensor(rng.standard_normal(lat.gdims), dtype=torch.float32, device=cuda)
+    yA = stiffness_axis0_apply([x], [F], 4)
+    column, plane = stiffness.column_plan, stiffness.plane_plan
+    for bad in ({"grid": (1, 1)}, {"columns": 64}):
+        monkeypatch.setattr(stiffness, "column_plan",
+                            lambda *a, **k: dict(column(*a, **k), **bad))
+        before = stiffness_axis0_apply.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            stiffness_axis0_apply([x], [F], 4)
+        assert stiffness_axis0_apply.launches == before
+        monkeypatch.undo()
+    for bad in ({"grid": (1, 1, 1)}, {"smem": stiffness.SMEM_MAX + 8192}):
+        monkeypatch.setattr(stiffness, "plane_plan", lambda *a, **k: dict(plane(*a, **k), **bad))
+        before = stiffness_axes12_apply.launches
+        y = yA.clone()
+        with pytest.raises(RuntimeError, match="launch failed"):
+            stiffness_axes12_apply([x], [F], y, 4)
+        torch.cuda.synchronize()
+        assert stiffness_axes12_apply.launches == before and torch.equal(y, yA)
+        monkeypatch.undo()
+    y = stiffness_axes12_apply([x], [F], stiffness_axis0_apply([x], [F], 4), 4)
+    assert _rel(y, stiffness_plain([x], [F], 4)) < 1e-5
 
 
 def test_k5_refused_plan_raises(cuda, monkeypatch):

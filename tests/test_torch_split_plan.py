@@ -1,6 +1,7 @@
-"""The launch plans of the two-kernel RK stage, checked on the CPU: K5a's
-column march (``ops/stage_ab.py::column_plan``, ``csrc/column.cuh``) and
-K5b's plane tile (``plane_plan``, ``csrc/plane.cuh``).
+"""The launch plans of the split kernels, checked on the CPU: the column
+march of K4a and K5a (``ops/stiffness.py::column_plan``,
+``csrc/column.cuh``) and the plane tile of K4b and K5b (``plane_plan``,
+``csrc/plane.cuh``), at K5b's operands and at K4b's.
 
 For p = 1..8 at the HITU lattice, the headline, a ragged lattice and the two
 channels one cell across: every node has exactly one owner, every node a
@@ -11,19 +12,23 @@ the card's SM count wherever the lattice has that many blocks to give.
 read arithmetic from the plan.
 """
 
+import ast
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from fenicsxfus_tpu_torch.ops import stage_ab
-from fenicsxfus_tpu_torch.ops.stage_ab import (
+from fenicsxfus_tpu_torch.ops import stage_ab, stiffness
+from fenicsxfus_tpu_torch.ops.stiffness import (
+    ITEMSIZE,
+    SMEM_MAX,
     column_plan,
     column_plan_ints,
     plane_plan,
     plane_plan_ints,
     plane_smem_bytes,
 )
-from fenicsxfus_tpu_torch.ops.stiffness import ITEMSIZE, SMEM_MAX
 
 CELLS = {
     "HITU": (80, 47, 47),
@@ -37,8 +42,8 @@ SMS = 132  # streaming multiprocessors of an H100
 
 def _stencil_span(g, n, p):
     """Lowest and highest node the stencil of axis node(s) ``g`` reads along
-    that axis (lattice.cuh::axis_term): the node's cell, and at an interface
-    the cell below."""
+    that axis (lattice.cuh: cell_sum of the node's cell, and at an interface
+    of the cell below)."""
     c = np.minimum(g // p, n - 1)
     k = g - c * p
     low = np.where((k == 0) & (c > 0), (c - 1) * p, c * p)
@@ -90,7 +95,7 @@ def test_column_plan_owns_every_node_once_and_reads_inside(name, p):
     G0, cols, n0 = gdims[0], gdims[1] * gdims[2], cells[0]
     plan = column_plan(gdims, p)
     C, S, (gx, gy) = plan["columns"], plan["slab"], plan["grid"]
-    assert C % 32 == 0 and 32 <= C <= stage_ab.COLUMN_MAX_THREADS and S >= 1
+    assert C % 32 == 0 and 32 <= C <= stiffness.COLUMN_MAX_THREADS and S >= 1
     # the grid csrc/column.cuh::read_column_plan accepts
     assert (gx, gy) == (-(-cols // C), -(-n0 // S))
     assert list(column_plan_ints(plan)) == [C, S, gx, gy]
@@ -122,14 +127,12 @@ def test_column_plan_owns_every_node_once_and_reads_inside(name, p):
     assert gx * gy >= min(SMS, -(-cols // 32) * n0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("p", range(1, 9))
-@pytest.mark.parametrize("name", list(CELLS))
-def test_plane_plan_owns_every_node_once_and_reads_inside(name, p, dtype):
+def _check_plane_plan(name, p, dtype, operands):
+    """Replay the plane plan of each (nf, nr) of ``operands`` on lattice
+    ``name`` at degree p."""
     cells = CELLS[name]
     gdims = tuple(n * p + 1 for n in cells)
-    # one field from 3 raw operands (linear) or two from 4 (the others)
-    for nf, nr in ((1, 3), (2, 4)):
+    for nf, nr in operands:
         plan = plane_plan(gdims, p, nf, dtype, nr=nr)
         (t1, t2), R = plan["tile"], plan["planes"]
         gx, gy, gz = plan["grid"]
@@ -137,7 +140,7 @@ def test_plane_plan_owns_every_node_once_and_reads_inside(name, p, dtype):
         assert plan["smem"] == plane_smem_bytes(t1, t2, p, nf, nr, ITEMSIZE[dtype]) <= SMEM_MAX
         # a thread per column, and enough threads to load a plane two nodes each
         threads = plan["threads"]
-        assert threads % 32 == 0 and t1 * t2 <= threads <= stage_ab.PLANE_MAX_THREADS
+        assert threads % 32 == 0 and t1 * t2 <= threads <= stiffness.PLANE_MAX_THREADS
         assert 2 * threads >= (t1 + p + 1) * (t2 + p + 1)
         # the grid csrc/plane.cuh::read_plane_plan accepts
         assert (gx, gy, gz) == (-(-gdims[2] // t2), -(-gdims[1] // t1), -(-gdims[0] // R))
@@ -167,18 +170,37 @@ def test_plane_plan_owns_every_node_once_and_reads_inside(name, p, dtype):
         assert gx * gy * gz >= min(SMS, most)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", range(1, 9))
+@pytest.mark.parametrize("name", list(CELLS))
+def test_plane_plan_owns_every_node_once_and_reads_inside(name, p, dtype):
+    # K5b: one field from 3 raw operands (linear) or two from 4 (the others)
+    _check_plane_plan(name, p, dtype, ((1, 3), (2, 4)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", range(1, 9))
+@pytest.mark.parametrize("name", list(CELLS))
+def test_k4b_plane_plan_owns_every_node_once_and_reads_inside(name, p, dtype):
+    # K4b: one or two fields, their own raw operands (nr = nf), and K4b's
+    # launch, which copies them straight into the field planes (nr = 0)
+    _check_plane_plan(name, p, dtype, ((1, 1), (2, 2), (1, 0), (2, 0)))
+
+
 def test_main_path_plans_keep_the_starting_sizes():
     """The fp32 p = 4 plans at the HITU lattice and the headline keep the
-    starting sizes, so K5a and K5b take their compile-time main-path kernels
-    (csrc/column.cuh with_column_shape, csrc/plane.cuh with_plane_shape: the
-    kPlaneMainT1 x kPlaneMainT2 tile, one thread per column)."""
+    starting sizes, so K4a/K5a and K4b/K5b take their compile-time main-path
+    kernels (csrc/column.cuh with_column_shape, csrc/plane.cuh
+    with_plane_shape: the kPlaneMainT1 x kPlaneMainT2 tile, one thread per
+    column), at K5b's operands and at K4b's."""
     for gdims in ((321, 189, 189), (417, 417, 417)):
         col = column_plan(gdims, 4)
-        assert (col["columns"], col["slab"]) == (stage_ab.COLUMN_THREADS, stage_ab.COLUMN_SLAB)
-        for nf in (1, 2):
-            plan = plane_plan(gdims, 4, nf, torch.float32)
-            assert plan["tile"] == stage_ab.PLANE_TILE == (8, 32)
-            assert plan["planes"] == stage_ab.PLANE_RUN and plan["threads"] == 8 * 32
+        assert (col["columns"], col["slab"]) == (stiffness.COLUMN_THREADS,
+                                                 stiffness.COLUMN_SLAB)
+        for nf, nr in ((1, 3), (2, 4), (1, 0), (2, 0)):
+            plan = plane_plan(gdims, 4, nf, torch.float32, nr=nr)
+            assert plan["tile"] == stiffness.PLANE_TILE == (8, 32)
+            assert plan["planes"] == stiffness.PLANE_RUN and plan["threads"] == 8 * 32
 
 
 def test_plans_are_cut_to_the_lattice_in_order():
@@ -191,33 +213,54 @@ def test_plans_are_cut_to_the_lattice_in_order():
     assert column_plan(gdims, 4) == {"columns": 32, "slab": 1, "grid": (20, 9)}
     # an 8 x 28 tile (2 x 8 cells cut to the lattice's 7 along g2), run 16
     # -> 2 x 3 x 3 blocks; run 1 -> 222 >= 132
-    plan = plane_plan(gdims, 4, 2, torch.float32)
+    plan = plane_plan(gdims, 4, 2, torch.float32, nr=4)
     assert plan["tile"] == (8, 28) and plan["planes"] == 1 and plan["grid"] == (2, 3, 37)
     # a lattice of 13 planes: the run reaches 1 (2 x 3 x 13 = 78), then the
     # tile halves along g1 (1 cell: 2 x 6 x 13 = 156)
-    plan = plane_plan((13, 21, 29), 4, 2, torch.float32)
+    plan = plane_plan((13, 21, 29), 4, 2, torch.float32, nr=4)
     assert plan["tile"] == (4, 28) and plan["planes"] == 1 and plan["grid"] == (2, 6, 13)
 
 
 def test_unsound_plans_raise(monkeypatch):
     gdims = (417, 417, 417)
     with monkeypatch.context() as m:
-        m.setattr(stage_ab, "COLUMN_THREADS", 1024)
+        m.setattr(stiffness, "COLUMN_THREADS", 1024)
         with pytest.raises(ValueError, match="columns a block"):
             column_plan(gdims, 4)
-        m.setattr(stage_ab, "COLUMN_THREADS", 48)
+        m.setattr(stiffness, "COLUMN_THREADS", 48)
         with pytest.raises(ValueError, match="multiple of 32"):
             column_plan(gdims, 4)
     with monkeypatch.context() as m:
-        m.setattr(stage_ab, "PLANE_MAX_THREADS", 4096)
-        m.setattr(stage_ab, "SMEM_TARGET", 10**9)
-        m.setattr(stage_ab, "PLANE_TILE", (64, 64))
+        m.setattr(stiffness, "PLANE_MAX_THREADS", 4096)
+        m.setattr(stiffness, "SMEM_TARGET", 10**9)
+        m.setattr(stiffness, "PLANE_TILE", (64, 64))
         with pytest.raises(ValueError, match="shared memory"):
-            plane_plan(gdims, 4, 2, torch.float64)
+            plane_plan(gdims, 4, 2, torch.float64, nr=4)
     with monkeypatch.context() as m:
-        m.setattr(stage_ab, "PLANE_MAX_THREADS", 32)
+        m.setattr(stiffness, "PLANE_MAX_THREADS", 32)
         with pytest.raises(ValueError, match="threads"):
-            plane_plan(gdims, 4, 2, torch.float32)
+            plane_plan(gdims, 4, 2, torch.float32, nr=4)
     # the sizes come back with the module's values
     assert column_plan(gdims, 4)["columns"] == 256
-    assert plane_plan(gdims, 4, 2, torch.float32)["tile"] == (8, 32)
+    assert plane_plan(gdims, 4, 2, torch.float32, nr=4)["tile"] == (8, 32)
+
+
+def test_plans_have_one_home_and_no_import_cycle():
+    """The plans live in ops/stiffness.py, which K4 runs and which imports
+    nothing of the stage modules; ops/stage_ab.py takes them from there."""
+    src = Path(stiffness.__file__).read_text()
+    imported = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.ImportFrom):
+            imported.add(node.module or "")
+        elif isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+    assert not {m for m in imported if "stage" in m or "step_wave" in m}, imported
+    for name in ("column_plan", "column_plan_ints", "plane_plan", "plane_plan_ints"):
+        assert getattr(stage_ab, name) is getattr(stiffness, name)
+    for name in ("COLUMN_THREADS", "COLUMN_SLAB", "PLANE_TILE", "PLANE_RUN"):
+        assert not hasattr(stage_ab, name)
+    # K4b's plan: the fields copied straight into the field planes, no raw ones
+    for nf in (1, 2):
+        assert stiffness.axes12_plan((37, 21, 29), 4, nf, torch.float32) == plane_plan(
+            (37, 21, 29), 4, nf, torch.float32, nr=0)
