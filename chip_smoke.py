@@ -87,7 +87,23 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    ``estimate_stable_dt``), its focal peak held against the JAX package's
    fused bowl run and 3 more steps against the unfused hybrid step (K1 +
    K6); K6 alone at the bowl lattice against its fp64 CPU run, timed; and
-   the bowl mesh's O'Neil check, ``validate_bowl_mesh("H101", nx=64)``.
+   the bowl mesh's O'Neil check, ``validate_bowl_mesh("H101", nx=64)``;
+14. the implicit (SDIRK) path, fp64: K1 in fp64 against its plain version,
+   1 and 2 fields, constant and DG-0, on (9,5,7) at p = 2, 3, 4, on the
+   ragged (13,11,17) at p = 1..8, timed at the headline (1 field) and the
+   HITU lattice (2 fields) by CUDA events and on the device alone, with its
+   share of the fp64 bound and its ptxas registers and spills; then the
+   slice's main path, ``LinearSpectralImplicit`` on the headline problem
+   (72.5M DOF, SDIRK4, 10 steps through ``dirk``, K1 the CG matvec), with
+   seconds a step, CG iterations, K1 launches, K1's share of a step's
+   device time (``torch.profiler``) and the memory peak, and one step from
+   a random state through K1 against the plain stiffness (the same CG
+   counts, 1e-9); ``LossySpectralImplicit`` at the HITU lattice (two-field
+   K1, 5 steps) and ``LinearSpectralImplicit`` on a small bowl mesh, each
+   held against the plain path the same way; and the reference gates on
+   the card: 1D linear implicit (4,4) < 0.05, lossy implicit (4,4) < 1e-2,
+   linear explicit (4,4) < 1e-3, the 2D channel (41,6) < 1e-3, and the
+   implicit 3D channel (41,1,1) through K1 < 0.05.
 
 Each phase prints its wall time. Every kernel wrapper counts its launches;
 the counts are set to 0 just before a main path runs and read just after.
@@ -114,9 +130,10 @@ TOL = 1e-5  # fp32, sums of ~30 terms taken in another order than the plain vers
 HEADLINE_NX = 104
 STEPS = 101
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): device memory
-# bytes/s and fp32 FLOP/s outside the tensor cores
+# bytes/s, and fp32 and fp64 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12
 # two-kernel pipeline switches (read as the JAX package reads them)
 TWO_KERNEL_ENV = {"FUS_STAGE_V3": "0", "FUS_V3": "0"}
 # the whole-step wavefront's switch
@@ -210,12 +227,13 @@ def stencil_flops(gdims, p: int, nf: int, axes) -> float:
 STAGE_NODE_FLOPS = 16  # per node: the stage fields, facet terms and epilogue
 
 
-def floor_ms(read: int, written: int, flops: float) -> dict:
+def floor_ms(read: int, written: int, flops: float, flop_rate: float = FP32_FLOP_PER_S) -> dict:
     """The least time the card could take for a call that reads ``read``
-    bytes once, writes ``written`` bytes once and does ``flops`` fp32
-    operations: the larger of the two times, and which one it is."""
+    bytes once, writes ``written`` bytes once and does ``flops`` operations
+    at ``flop_rate`` (fp32 unless given): the larger of the two times, and
+    which one it is."""
     t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -250,14 +268,14 @@ def k4_plan_line(gdims, p: int) -> str:
             f"{axes12_plan(gdims, p, 2, torch.float32)}")
 
 
-def plan_line(gdims, p: int, nf: int, nr=None) -> str:
-    """The fp32 tile plan of the tiled K1 (nr = nf) or K2 kernels on a
-    lattice."""
+def plan_line(gdims, p: int, nf: int, nr=None, dtype=None) -> str:
+    """The tile plan (fp32 unless ``dtype`` is given) of the tiled K1
+    (nr = nf) or K2 kernels on a lattice."""
     import torch
 
     from fenicsxfus_tpu_torch.ops.stiffness import tile_plan
 
-    return str(tile_plan(gdims, p, nf, torch.float32, nr=nr))
+    return str(tile_plan(gdims, p, nf, dtype or torch.float32, nr=nr))
 
 
 # ------------------------------------------------------------ launch counts
@@ -384,18 +402,23 @@ def phase_versions() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build the kernels; return each kernel's ptxas lines (registers,
+    stack and spills) by its mangled name."""
     from fenicsxfus_tpu_torch import _build
 
     path, seconds, log = _build.build()
     _build.library()
     say(f"[1] built {path.name} in {seconds:.1f} s")
-    entry = ""
+    entry, ptxas = "", {}
     for line in log.splitlines():  # ptxas -v: each kernel's registers, stack and spills
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "registers" in line or "spill" in line:
-            say(f"[1]   {entry}: {line.replace('ptxas info    :', '').strip()}")
+            text = line.replace('ptxas info    :', '').strip()
+            ptxas.setdefault(entry, []).append(text)
+            say(f"[1]   {entry}: {text}")
+    return ptxas
 
 
 def _lattice(grid, p, dtype):
@@ -1526,6 +1549,375 @@ def phase_bowl_all(device, card) -> dict:
     return {"band": band, "bowl": bowl}
 
 
+# ------------------------------------------------ [14] the implicit path
+
+TOL64 = 1e-12  # fp64, sums of ~30 terms taken in another order than the plain version
+IMPLICIT_STEPS = 10
+# the fp64 K1 kernels of the implicit path: tile.cuh's general tile, 1 and 2 fields
+K1_FP64 = {1: "stiffness_tile_kernelIdLi1ELb0E", 2: "stiffness_tile_kernelIdLi2ELb0E"}
+
+
+def ptxas_text(ptxas: dict, key: str) -> str:
+    """The ptxas lines of the kernel whose mangled name holds ``key``."""
+    found = [" ".join(v) for k, v in ptxas.items() if key in k]
+    return "; ".join(found) if found else "not in this run's build log (library reused)"
+
+
+def phase_k1_fp64(device, card, ptxas) -> dict:
+    """[14a] K1 in fp64 against its plain version: 1 and 2 fields, constant
+    and DG-0 coefficients, on (9,5,7) at p = 2, 3, 4, on the ragged
+    (13,11,17) at p = 1..8, at the headline lattice (1 field, timed: the
+    linear implicit CG's matvec) and at the HITU lattice (2 fields, timed:
+    the lossy implicit CG's matvec)."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.stiffness import (
+        pack_const, pack_field, stiffness_apply, stiffness_plain,
+    )
+
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device=device).manual_seed(14)
+    grids = ([((9, 5, 7), p) for p in (2, 3, 4)] + [((13, 11, 17), p) for p in range(1, 9)]
+             + [((HEADLINE_NX,) * 3, 4), (HITU_GRID, 4)])
+    timed = {((HEADLINE_NX,) * 3, 4): 1, (HITU_GRID, 4): 2}  # fields timed at each
+    out = {}
+    for grid, p in grids:
+        lat = _lattice(grid, p, torch.float64)
+        coeffs = {
+            "const": pack_const(lat, 1.0, device),
+            "dg0": pack_field(lat, rng.uniform(0.5, 2.0, int(np.prod(grid))), device),
+        }
+        xs = [torch.randn(lat.gdims, generator=gen, device=device, dtype=torch.float64)
+              for _ in range(2)]
+        cases = {"const": ([xs[0]], [coeffs["const"]]), "dg0": ([xs[0]], [coeffs["dg0"]]),
+                 "2 fields": (xs, [coeffs["const"], coeffs["dg0"]])}
+        for name, (x_in, F_in) in cases.items():
+            y = stiffness_apply(x_in, F_in, p)
+            y_ref = stiffness_plain(x_in, F_in, p)
+            torch.cuda.synchronize()
+            rel, err = rel_err(y, y_ref)
+            say(f"[14] K1 fp64 grid={grid} p={p} {name}: max|dy|/max|y| = {rel:.3e}")
+            if not rel <= TOL64:
+                raise AssertionError(f"fp64 K1 disagrees with its plain version: {rel:.3e}")
+            del y, y_ref
+        nf = timed.get((grid, p))
+        if nf:
+            x_in, F_in = cases["const" if nf == 1 else "2 fields"]
+            ms = cuda_median_ms(lambda: stiffness_apply(x_in, F_in, p))
+            dms = cuda_device_ms(lambda: stiffness_apply(x_in, F_in, p))
+            pms = cuda_median_ms(lambda: stiffness_plain(x_in, F_in, p))
+            bound = floor_ms(nbytes(x_in, F_in), nbytes(xs[0]),
+                             stencil_flops(lat.gdims, p, nf, (0, 1, 2)), FP64_FLOP_PER_S)
+            err = rel_err(stiffness_apply(x_in, F_in, p), stiffness_plain(x_in, F_in, p))[1]
+            say(f"[14] K1 fp64 {nf} field(s) grid={grid} p={p}: kernel {ms:.3f} ms (device "
+                f"alone {dms:.3f} ms), plain {pms:.3f} ms, {share_text(bound, dms)} of the "
+                f"device's time (median of 10, CUDA events; {card}); tile plan "
+                f"{plan_line(lat.gdims, p, nf, dtype=torch.float64)}; ptxas "
+                f"{ptxas_text(ptxas, K1_FP64[nf])}")
+            out[nf] = {"max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms, **bound}
+        del xs, coeffs
+        torch.cuda.synchronize()
+    return out
+
+
+def _counting(fn):
+    """``fn`` with a count of its calls in ``.calls``."""
+    def wrapped(*args):
+        wrapped.calls += 1
+        return fn(*args)
+
+    wrapped.calls = 0
+    return wrapped
+
+
+def implicit_against_plain(model, tag: str, steps: int = 1) -> dict:
+    """``steps`` SDIRK steps from a seeded random (u, v) through K1 and
+    through the plain stiffness, both on the card: the same CG iteration
+    counts (the worst per step, and the stiffness applies in all), the
+    fields within 1e-9 relative in max-norm."""
+    import torch
+
+    from fenicsxfus_tpu_torch.models.common import run_steps
+    from fenicsxfus_tpu_torch.ops.stiffness import stiffness_plain
+
+    gen = torch.Generator(device=model.device).manual_seed(141)
+    n = model.ops.ndofs
+    u0 = 1e-3 * torch.randn(n, generator=gen, device=model.device, dtype=model.dtype)
+    v0 = torch.randn(n, generator=gen, device=model.device, dtype=model.dtype)
+    plain = model.ops.plain()
+    plain.stiffness_fn = _counting(stiffness_plain)
+    dts = [model.dt] * steps
+    sk, sp = [], []
+    reset_counts()
+    uk, vk, _ = run_steps(model.dirk_step(stats=sk), model.consts, u0, v0, 0.0, dts)
+    torch.cuda.synchronize()
+    k1 = counts()["K1"]
+    up, vp, _ = run_steps(model.dirk_step(ops=plain, stats=sp), model.consts, u0, v0, 0.0, dts)
+    torch.cuda.synchronize()
+    worst = max(rel_err(uk, up)[0], rel_err(vk, vp)[0])
+    its_k, its_p = [s[0] for s in sk], [s[0] for s in sp]
+    say(f"{tag} {steps} step(s) from a random state, K1 against the plain stiffness: max rel "
+        f"diff {worst:.3e} (gate 1e-9); worst CG iterations {its_k} against {its_p}, "
+        f"stiffness applies {k1} against {plain.stiffness_fn.calls}")
+    if not (worst <= 1e-9 and its_k == its_p and k1 == plain.stiffness_fn.calls > 0):
+        raise AssertionError(f"{tag} the K1 path disagrees with the plain path")
+    return {"max_rel": worst}
+
+
+def device_split(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the
+    device's busy time and the K1 kernels' time (ms), summed over kernels;
+    device times None where the profiler shows none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = k1 = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:  # the kernels, not the ops that launch them
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        busy += us / 1e3
+        if "stiffness_tile_kernel" in evt.key:
+            k1 += us / 1e3
+    if busy == 0.0:
+        return {"wall_ms": wall, "busy_ms": None, "k1_ms": None}
+    return {"wall_ms": wall, "busy_ms": busy, "k1_ms": k1}
+
+
+def phase_implicit_headline(device, card) -> dict:
+    """[14b] the slice's main path: ``LinearSpectralImplicit`` on bench.py's
+    problem (phase [5]'s box, medium, tags and dt), SDIRK4, fp64, through
+    ``dirk`` for IMPLICIT_STEPS steps; then one step from a random state
+    through K1 and through the plain stiffness."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+    from fenicsxfus_tpu_torch.models.common import run_steps
+
+    nx, degree, c0, rho0, f0, p0, L = HEADLINE_NX, 4, 1500.0, 1000.0, 0.5e6, 60000.0, 0.12
+    t0 = time.perf_counter()
+    mesh = ft.create_box((nx, nx, nx), (0, 0, 0), (L, L, L))
+    ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-9, 2: lambda x: x[0] > L - 1e-9})
+    dt = 0.9 * (L / nx) / (c0 * degree**2)
+    model = ft.LinearSpectralImplicit(mesh, None, degree, c0, rho0, f0, p0, c0, 4, dt,
+                                      dtype=torch.float64, device=device)
+    model.init()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    ndofs = model.number_of_dofs()
+    say(f"[14] implicit headline nx={nx}: {ndofs} DOF, SDIRK{model.rk_order}, fp64, dt "
+        f"{dt:.6e} s, cg_rtol {model.cg_rtol:g}, setup {setup:.1f} s")
+    torch.cuda.reset_peak_memory_stats(device)
+
+    # --- the main path: counts from 0 just before, read just after
+    reset_counts()
+    t0 = time.perf_counter()
+    u, v, t = model.dirk(0.0, IMPLICIT_STEPS * dt)
+    torch.cuda.synchronize()
+    solve = time.perf_counter() - t0
+    launches = counts()
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+
+    stages = len(model.b_tab)
+    k1 = launches["K1"]
+    # per stage: one rhs_stage apply, the initial residual A(x0), one per iteration
+    mean_it = (k1 - 2 * stages * IMPLICIT_STEPS) / (stages * IMPLICIT_STEPS)
+    checksum = float(u.double().abs().sum())
+    say(f"[14] {IMPLICIT_STEPS} SDIRK4 steps: solve {solve:.3f} s, {solve / IMPLICIT_STEPS:.4f} "
+        f"s a step, {ndofs * IMPLICIT_STEPS / solve:.6e} DOF-steps/s; CG iterations a stage: "
+        f"worst {model.cg_stats['max_iterations']}, mean {mean_it:.2f} (worst final |r|^2 "
+        f"{model.cg_stats['max_residual2']:.3e}); K1 launches {k1} ({k1 / IMPLICIT_STEPS:.1f} a "
+        f"step); device memory peak {peak_gib:.3f} GiB; checksum sum|u| = {checksum:.6e} "
+        f"({card})")
+    if not (np.isfinite(checksum) and checksum > 0):
+        raise AssertionError("implicit headline state is not finite and nonzero")
+    if any(launches[k] for k in ("K4a", "K4b") + STAGE_KERNELS):
+        raise AssertionError(f"the implicit headline launched another kernel: {launches}")
+    if not (k1 >= 3 * stages * IMPLICIT_STEPS and model.cg_stats["max_iterations"] < 2000):
+        raise AssertionError("the implicit headline's CG did not run through K1")
+
+    # one more step under the profiler: K1's share of the step's device time
+    split = device_split(lambda: run_steps(model.dirk_step(), model.consts, u, v, t, [dt]))
+    if split["busy_ms"] is None:
+        say(f"[14] one more step: {split['wall_ms']:.1f} ms by the host clock; the profiler "
+            f"shows no device time (K1's share not measured)")
+    else:
+        say(f"[14] one more step: {split['wall_ms']:.1f} ms by the host clock, device busy "
+            f"{split['busy_ms']:.1f} ms (idle share "
+            f"{1 - split['busy_ms'] / split['wall_ms']:.3f}), K1 {split['k1_ms']:.1f} ms = "
+            f"{split['k1_ms'] / split['busy_ms']:.3f} of the device time (torch.profiler)")
+    del u, v
+    against = implicit_against_plain(model, "[14] headline")
+    return {"launches": launches, "solve_s": solve, "setup_s": setup, "peak_gib": peak_gib,
+            "mean_it": mean_it, "split": split, **against}
+
+
+def phase_implicit_lossy(device, card) -> dict:
+    """[14c] ``LossySpectralImplicit`` at the HITU lattice (box, tags,
+    medium and dt of ``drivers.hitu.build_model("W", "H101", "WATER")``),
+    SDIRK4, fp64, 5 steps through ``dirk`` (two-field K1 in every CG
+    iteration), then one step against the plain stiffness."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+    from fenicsxfus_tpu_torch.drivers import hitu
+
+    f0, degree, nx = 0.5e6, 4, HITU_GRID[0]
+    c0, rho0, p0, delta0, _ = hitu._medium("W", "H101", "WATER", f0, False)
+    g = hitu.TRANSDUCERS["H101"]
+    L, W, a = g["L"], g["W"], g["a"]
+    h = L / nx
+    mesh = ft.create_box(HITU_GRID, (0.0, -W / 2, -W / 2), (L, W / 2, W / 2))
+    ft.tag_boundaries(mesh, {1: lambda x: (x[0] < 1e-9) & (np.hypot(x[1], x[2]) <= a)},
+                      default=2)
+    dt, _ = hitu._cfl_dt(0.4, h, c0, degree, f0)
+    t0 = time.perf_counter()
+    model = ft.LossySpectralImplicit(mesh, None, degree, c0, rho0, delta0, f0, p0, c0, 4, dt,
+                                     dtype=torch.float64, device=device)
+    model.init()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    steps = 5
+    reset_counts()
+    t0 = time.perf_counter()
+    u, _, _ = model.dirk(0.0, steps * dt)
+    torch.cuda.synchronize()
+    solve = time.perf_counter() - t0
+    launches = counts()
+    k1 = launches["K1"]
+    mean_it = (k1 - 2 * 4 * steps) / (4 * steps)
+    say(f"[14] lossy implicit, HITU lattice: {model.number_of_dofs()} DOF, delta0 "
+        f"{delta0:.4e}, dt {dt:.6e} s, setup {setup:.1f} s; {steps} SDIRK4 steps in "
+        f"{solve:.3f} s ({solve / steps:.4f} s a step); CG iterations a stage: worst "
+        f"{model.cg_stats['max_iterations']}, mean {mean_it:.2f}; two-field K1 launches {k1} "
+        f"({card})")
+    if not (torch.isfinite(u).all() and k1 >= 3 * 4 * steps):
+        raise AssertionError("the lossy implicit run is not finite or missed K1")
+    del u
+    against = implicit_against_plain(model, "[14] lossy HITU lattice")
+    return {"launches": launches, "solve_s": solve, "steps": steps, "mean_it": mean_it,
+            **against}
+
+
+def phase_implicit_bowl(device) -> None:
+    """[14d] ``LinearSpectralImplicit`` on a small bowl-fitted mesh (the
+    hybrid ``stiffness_diag``; K1 + K6 in every CG iteration), 3 steps
+    through K1 and through the plain stiffness from one random state."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+
+    mesh, _ = ft.create_bowl_box((16, 7, 7), (0, 0, 0), (1.0, 0.9, 0.9), 0.9, 0.25,
+                                 blend=0.08, lateral_hold=0.08)
+    ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-9}, default=2)
+    dt = 0.3 * mesh.h_min() / 16
+    model = ft.LinearSpectralImplicit(mesh, None, 4, 1.0, 1.0, 1 / 0.3, 1.0, 1.0, 4, dt,
+                                      dtype=torch.float64, device=device)
+    hyb = model.ops.hybrid
+    say(f"[14] bowl mesh: {model.number_of_dofs()} DOF, slab {hyb['nb']} cells, "
+        f"{hyb['slab_x']} rows")
+    implicit_against_plain(model, "[14] bowl", steps=3)
+
+
+def phase_implicit_gates(device) -> dict:
+    """[14e] the reference gates on the card, fp64 (1D and 2D: plain torch
+    ops on the device; the 3D channel through K1)."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+    from fenicsxfus_tpu_torch.analysis.analytical import damped_planewave, planewave
+    from fenicsxfus_tpu_torch.analysis.error import relative_l2_error
+
+    f0, c0, L, degree, rho0 = 10.0, 1.0, 1.0, 4, 4.0
+    p0 = rho0 * c0
+    nx = int(4 * L * f0 / c0 + 1)  # 4 elements per wavelength
+    h = L / nx
+    alphadB = 5.0
+    delta0 = ft.compute_diffusivity_of_sound(2 * np.pi * f0, c0, alphadB)
+
+    def ends(mesh):
+        ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > L - 1e-12})
+        return mesh
+
+    cases = {
+        "1D linear implicit (4,4)": (
+            lambda: ft.LinearSpectralImplicit(ends(ft.create_interval(nx, 0.0, L)), None,
+                                              degree, c0, rho0, f0, p0, c0, 4,
+                                              0.9 * h / (c0 * degree**2), device=device),
+            lambda x, t: planewave(x[0], t, c0, f0, p0), 0.05),
+        "1D lossy implicit (4,4)": (
+            lambda: ft.LossySpectralImplicit(ends(ft.create_interval(nx, 0.0, L)), None,
+                                             degree, c0, rho0, delta0, f0, p0, c0, 4,
+                                             0.5 * h / (c0 * degree**2), device=device),
+            lambda x, t: damped_planewave(x[0], t, c0, f0, p0, alphadB / 20 * np.log(10)),
+            1e-2),
+        "1D linear explicit (4,4)": (
+            lambda: ft.LinearSpectralExplicit(ends(ft.create_interval(nx, 0.0, L)), None,
+                                              degree, c0, rho0, f0, p0, c0, 4,
+                                              0.9 * h / (c0 * degree**2),
+                                              dtype=torch.float64, device=device),
+            lambda x, t: planewave(x[0], t, c0, f0, p0), 1e-3),
+        "2D channel explicit (41,6)": (
+            lambda: ft.LinearSpectralExplicit(
+                ends(ft.create_rectangle((41, 6), (0, 0), (L, 0.15))), None, degree, c0,
+                rho0, f0, p0, c0, 4, 0.9 * (L / 41) / (c0 * degree**2),
+                dtype=torch.float64, device=device),
+            lambda x, t: planewave(x[0], t, c0, f0, p0), 1e-3),
+        "3D channel implicit (41,1,1) through K1": (
+            lambda: ft.LinearSpectralImplicit(
+                ends(ft.create_box((41, 1, 1), (0, 0, 0), (L, 0.1, 0.1))), None, degree, c0,
+                rho0, f0, p0, c0, 4, 0.9 * (L / 41) / (c0 * degree**2), device=device),
+            lambda x, t: planewave(x[0], t, c0, f0, p0), 0.05),
+    }
+    out = {}
+    for name, (make, exact, gate) in cases.items():
+        model = make()
+        model.init()
+        reset_counts()
+        t0 = time.perf_counter()
+        tend = L / c0 + 16.0 / f0
+        u, _, tf = model.dirk(0.0, tend) if hasattr(model, "dirk") else model.rk(0.0, tend)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1 = counts()["K1"]
+        err = relative_l2_error(model.ops, u, lambda x: exact(x, tf))
+        stats = f", worst CG iterations {model.cg_stats['max_iterations']}" if hasattr(
+            model, "dirk") else ""
+        say(f"[14] {name} fp64 on the card: {seconds:.2f} s, rel-L2 = {err:.3e} (gate "
+            f"{gate:g}){stats}, K1 launches {k1}")
+        if not (u.device == model.device == torch.device(device) and err < gate):
+            raise AssertionError(f"{name}: rel-L2 {err:.3e} >= {gate:g}")
+        if (model.ops.d == 3) != (k1 > 0):
+            raise AssertionError(f"{name}: K1 launched {k1} times on a {model.ops.d}D lattice")
+        out[name] = err
+    return out
+
+
+def phase_implicit(device, card, ptxas) -> dict:
+    """[14]: fp64 K1, the implicit headline, the lossy implicit run at the
+    HITU lattice, the bowl check and the reference gates."""
+    t_phase = time.perf_counter()
+    k1 = phase_k1_fp64(device, card, ptxas)
+    say(f"[14] fp64 K1 checks done at {time.perf_counter() - t_phase:.1f} s")
+    headline = phase_implicit_headline(device, card)
+    say(f"[14] implicit headline done at {time.perf_counter() - t_phase:.1f} s")
+    lossy = phase_implicit_lossy(device, card)
+    say(f"[14] lossy implicit done at {time.perf_counter() - t_phase:.1f} s")
+    phase_implicit_bowl(device)
+    phase_implicit_gates(device)
+    say(f"[14] done in {time.perf_counter() - t_phase:.1f} s")
+    return {"k1": k1, "headline": headline, "lossy": lossy}
+
+
 def main() -> int:
     import torch
 
@@ -1537,7 +1929,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     card = phase_versions()
-    phase_build()
+    ptxas = phase_build()
     headline = ((HEADLINE_NX,) * 3, 4)
     small = [((9, 5, 7), p) for p in (2, 3, 4)] + [((13, 11, 17), p) for p in (1, 5, 8)]
     k1 = phase_k1(device, card, small + [headline], headline)
@@ -1563,6 +1955,7 @@ def main() -> int:
         f"GDOF-RK4-updates/s) against the flat aperture's {hitu_run['solve_s']:.3f} s "
         f"({hitu_run['rate']:.4f}, [7]); device memory peak {bowl['bowl']['peak_gib']:.3f} "
         f"against {hitu_run['peak_gib']:.3f} GiB ({card})")
+    implicit = phase_implicit(device, card, ptxas)
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
     # from phase [11], K3 from phase [12] (HITU for focused, the headline
@@ -1610,6 +2003,14 @@ def main() -> int:
     kernels.append(entry("stage_apply westervelt +band (K2)", "stage.cu",
                          "fenicsxfus_tpu/ops/pallas_stage_v3.py:442",
                          bowl["bowl"]["launches"]["K2+band"]["westervelt"], bowl["band"]))
+    # fp64 K1 on the implicit path ([14]): one field in the linear model's CG
+    # at the headline, two fields in the lossy model's at the HITU lattice
+    kernels += [entry("stiffness_apply fp64 (K1), linear implicit CG", "stiffness.cu",
+                      "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                      implicit["headline"]["launches"]["K1"], implicit["k1"][1]),
+                entry("stiffness_apply fp64 two fields (K1), lossy implicit CG", "stiffness.cu",
+                      "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                      implicit["lossy"]["launches"]["K1"], implicit["k1"][2])]
     say(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -8,8 +8,12 @@ first use (``_build.py``). It imports no jax. The JAX package
 
 Ported so far: the explicit-RK models ``LinearSpectralExplicit``,
 ``LossySpectralExplicit``, ``WesterveltSpectralExplicit`` and
-``WesterveltSpectralFocused`` on a uniform ``create_box`` lattice, with point
-sensors and in-loop recording (``rk_record``), the HITU focused-bowl driver
+``WesterveltSpectralFocused`` and the SDIRK models ``LinearSpectralImplicit``
+and ``LossySpectralImplicit`` (Jacobi-preconditioned CG, ``ops/cg.py``, K1
+its matvec in 3D) on uniform ``create_interval``, ``create_rectangle`` and
+``create_box`` lattices (1D and 2D through the plain ``apply_scaled``, as the
+JAX package has no kernel there), with point sensors, in-loop recording
+(``rk_record``, ``dirk_record``) and ``eval_function``, the HITU focused-bowl driver
 (``drivers/hitu.py``), the K1 stiffness kernel (``ops/stiffness.py``), the
 K2 fused RK-stage kernel for all four model kinds (``ops/stage.py``), and the
 two-kernel pipeline of the JAX package: K4a/K4b, the stiffness split at the
@@ -25,11 +29,11 @@ Entry points run on the card unless the caller asks for the CPU
 from .core.bowl import create_bowl_box  # noqa: F401
 from .core.mesh import Mesh, create_box, create_interval, create_rectangle, tag_boundaries  # noqa: F401
 from .models.focused import WesterveltSpectralFocused, bowl_delays  # noqa: F401
-from .models.linear import LinearSpectralExplicit  # noqa: F401
-from .models.lossy import LossySpectralExplicit  # noqa: F401
+from .models.linear import LinearSpectralExplicit, LinearSpectralImplicit  # noqa: F401
+from .models.lossy import LossySpectralExplicit, LossySpectralImplicit  # noqa: F401
 from .models.westervelt import WesterveltSpectralExplicit  # noqa: F401
 from .ops.operators import SEMOperators  # noqa: F401
-from .utils import compute_diffusivity_of_sound, estimate_stable_dt  # noqa: F401
+from .utils import compute_diffusivity_of_sound, estimate_stable_dt, eval_function  # noqa: F401
 
 __all__ = [
     "Mesh",
@@ -40,12 +44,15 @@ __all__ = [
     "tag_boundaries",
     "SEMOperators",
     "LinearSpectralExplicit",
+    "LinearSpectralImplicit",
     "LossySpectralExplicit",
+    "LossySpectralImplicit",
     "WesterveltSpectralExplicit",
     "WesterveltSpectralFocused",
     "bowl_delays",
     "compute_diffusivity_of_sound",
     "estimate_stable_dt",
+    "eval_function",
 ]
 
 __version__ = "0.1.0"

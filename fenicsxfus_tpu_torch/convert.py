@@ -8,8 +8,13 @@ shape with axis a replaced by n_a or 1). A hybrid (bowl-fitted) lattice's
 coefficient {"hyb_u", "hyb_b", "hyb_G"} keeps its keys: ``hyb_u`` is packed
 F tensors as above, ``hyb_b`` a tensor, and the slab's correction factors
 ``hyb_G`` go from the JAX package's [nb, N, N, N, 6] to the port's
-component-major [6, nb, N, N, N]. Scalars stay Python floats. Tensors go to
-the card unless ``device`` asks for the CPU.
+component-major [6, nb, N, N, N]. The lattice scales of a 1D or 2D
+coefficient (the JAX package's ``pack_scales``) keep their form: a list, per
+axis, of (scalar, [vectors]) for a constant coefficient, a tuple of per-axis
+scale tensors for a cell-resolved one. The implicit models' vectors (``m``,
+``kdiag``, ``kdiag_u``/``kdiag_v``, ``src_vec_d``) are plain arrays. Scalars
+stay Python floats. Tensors go to the card unless ``device`` asks for the
+CPU.
 """
 
 from __future__ import annotations
@@ -46,13 +51,26 @@ def hybrid_coeff_from_jax(c: dict, device="cuda", dtype=torch.float64) -> dict:
     }
 
 
+def scales_from_jax(scales, device="cuda", dtype=torch.float64):
+    """Lattice scales of the JAX package's ``pack_scales`` → the port's: a
+    list of (scalar, [vectors]) per axis stays one, with float scalars and
+    tensor vectors; per-axis scale arrays become a tuple of tensors."""
+    if all(isinstance(s, tuple) and len(s) == 2 and np.ndim(s[0]) == 0 for s in scales):
+        return [(float(fac), [_tensor(np.asarray(v), device, dtype) for v in vecs])
+                for fac, vecs in scales]
+    return tuple(_tensor(np.asarray(s), device, dtype) for s in scales)
+
+
 def consts_from_numpy(consts: dict, device="cuda", dtype=torch.float64) -> dict:
-    """The JAX model's ``consts`` (numpy arrays, floats, nested dicts) as the
-    port's: tensors of ``dtype`` on ``device``, F-packed coefficients in the
-    port's layout, scalars as floats."""
+    """The JAX model's ``consts`` (numpy arrays, floats, nested dicts, lists
+    of lattice scales) as the port's: tensors of ``dtype`` on ``device``,
+    F-packed coefficients and lattice scales in the port's layout, scalars
+    as floats."""
     out = {}
     for k, v in consts.items():
-        if isinstance(v, dict):
+        if isinstance(v, (list, tuple)):
+            out[k] = scales_from_jax(v, device, dtype)
+        elif isinstance(v, dict):
             if set(v) == _F_KEYS:
                 out[k] = coeff_from_jax(v, device, dtype)
             elif set(v) == _HYBRID_KEYS:

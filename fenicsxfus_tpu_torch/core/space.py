@@ -53,7 +53,8 @@ class FunctionSpace:
         self.degree = degree
         if mesh.grid_shape is None:
             raise NotImplementedError(
-                "unstructured meshes are not ported yet; use create_box"
+                "unstructured meshes are not ported yet; use create_interval, "
+                "create_rectangle or create_box"
             )
         self._gdims = tuple(na * degree + 1 for na in mesh.grid_shape)
         self.ndofs = int(np.prod(self._gdims))

@@ -16,29 +16,39 @@ operand, the slab correction K6 of each stage's fields formed before the
 launch (``FusedRKStage.make_step(band_fn=...)``); ``FUS_STAGE_V3=0`` or
 ``FUS_HYBRID_FUSED=0`` takes the unfused step there, and K3 is never taken.
 Sensors snap against the uniform box's origin, and inside the deformed slab
-against the true node coordinates.
+against the true node coordinates. On 1D and 2D lattices the step is the
+unfused one (the stiffness is ``LatticeStiffness.apply_scaled``).
+
+``ImplicitModelBase`` is the SDIRK driver (``dirk``, ``dirk_record``): each
+stage solves (M + τ-terms)·kv = b by Jacobi-preconditioned CG
+(``ops/cg.py``), whose matvec is the model's ``lhs_pure``; on a 3D lattice
+that is K1 once per CG iteration, and ``rhs_stage`` once per stage.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import warnings
 
 import numpy as np
 import torch
 
 from ..core.gll import gll_points_weights_01, lagrange_eval_gll
 from ..core.space import cell_node_coords
+from ..ops.cg import cg_solve
 from ..ops.operators import SEMOperators
 from ..ops.stage import KIND_DENSE, KIND_FACET, FusedRKStage, pack_facet_vector, stage_fields
 from ..ops.stage_ab import FusedRKStageAB
 from ..ops.step_wave import FusedRKStepWave, try_separate_field
 from ..utils import compute_eval_params
 from .common import (
+    dirk_tables,
     explicit_tables,
     make_recording_scan,
     make_rk_step,
     make_scan_from_step,
+    run_steps,
     source_window,
     step_sizes,
 )
@@ -244,8 +254,10 @@ class ExplicitModelBase(SpectralModelBase):
     def fused_step(self, stage_fn=None):
         """The fused step (one ``stage_fn`` call per RK stage, or per step
         on the wave class), or None when ``FUS_FUSED=0`` forces the unfused
-        step, the model declares no fused kind, a stiffness coefficient is
-        not packed, or a boundary vector has interior support.
+        step, the model declares no fused kind, the lattice is 1D or 2D (no
+        stage kernel, as the JAX package has no Pallas stage there), a
+        stiffness coefficient is not packed, or a boundary vector has
+        interior support.
 
         The switches, read here when the step is built (as the JAX package's
         ``_try_fused_step`` reads them), pick the kernels: one K2 launch per
@@ -266,7 +278,7 @@ class ExplicitModelBase(SpectralModelBase):
         otherwise K2 on the uniform parts ``hyb_u`` of the coefficients with
         the band operand formed per stage by ``_band_fn``."""
         kind = type(self).__dict__.get("FUSED_KIND")
-        if not kind or os.environ.get("FUS_FUSED", "") == "0":
+        if not kind or self.ops.d != 3 or os.environ.get("FUS_FUSED", "") == "0":
             return None
         hybrid = self.ops.hybrid is not None
         if hybrid and (os.environ.get("FUS_STAGE_V3", "1") == "0"
@@ -351,3 +363,119 @@ class ExplicitModelBase(SpectralModelBase):
         times = t0 + np.cumsum(step_sizes(t0, tf, self.dt))
         self.u_n, self.v_n, self.t = u, v, float(t)
         return u, v, float(t), times, ys
+
+
+class ImplicitModelBase(SpectralModelBase):
+    """SDIRK models: subclasses provide static functions over a ``consts``
+    dict (as the JAX package's):
+
+    * ``lhs_pure(ops, consts, tau, x) -> A x``   (A = M + τ-terms)
+    * ``lhs_diag_pure(ops, consts, tau)``        (diag(A), Jacobi)
+    * ``rhs_stage(ops, consts, tau, t, u, v) -> b``
+
+    The instance methods ``lhs``/``lhs_diag``/``rhs`` are thin wrappers for
+    direct use. After ``dirk`` or ``dirk_record``, ``cg_stats`` holds the
+    worst CG iteration count and final ‖r‖² over the run's stage solves.
+    """
+
+    def __init__(self, mesh, meshtags, degree, freq0, p0, s0, rk_order, dt, dtype, device,
+                 cg_rtol=1e-8, cg_maxiter=2000):
+        super().__init__(mesh, meshtags, degree, freq0, p0, s0, dt, dtype, device)
+        self.rk_order = int(rk_order)
+        self.A_tab, self.b_tab, self.c_tab = dirk_tables(self.rk_order)
+        self.cg_rtol = cg_rtol
+        self.cg_maxiter = cg_maxiter
+        self.consts: dict = {}
+        self.cg_stats = None
+
+    def lhs(self, tau, x):
+        return type(self).lhs_pure(self.ops, self.consts, tau, x)
+
+    def lhs_diag(self, tau):
+        return type(self).lhs_diag_pure(self.ops, self.consts, tau)
+
+    def rhs(self, tau, t, u, v):
+        return type(self).rhs_stage(self.ops, self.consts, tau, t, u, v)
+
+    def dirk_step(self, ops=None, stats=None):
+        """The SDIRK step ``step(consts, (u, v, t), dt) -> (u, v, t + dt)``
+        (the JAX package's ``_build_run`` step): per stage, b from
+        ``rhs_stage``, then CG on ``lhs_pure`` from the previous stage's kv
+        (zero at the first stage). ``ops`` replaces the model's operators
+        (``ops.plain()`` runs the plain stiffness). Each step appends
+        (worst CG iterations, worst final ‖r‖² as a 0-d tensor) over its
+        stages to the list ``stats``, if given."""
+        A_tab, b_tab, c_tab = self.A_tab, self.b_tab, self.c_tab
+        ops = self.ops if ops is None else ops
+        cls = type(self)
+        rtol, maxiter = self.cg_rtol, self.cg_maxiter
+
+        def step(consts, carry, dtn):
+            u0, v0, t = carry
+            tau = dtn * A_tab[0][0]
+            dinv = 1.0 / cls.lhs_diag_pure(ops, consts, tau)
+            kus, kvs = [], []
+            u_acc, v_acc = u0, v0
+            it_max, res_max = 0, torch.zeros((), dtype=v0.dtype, device=v0.device)
+            for i in range(len(b_tab)):
+                un, vn = u0, v0
+                for j in range(i):
+                    un = un + (A_tab[i][j] * dtn) * kus[j]
+                    vn = vn + (A_tab[i][j] * dtn) * kvs[j]
+                tn = t + c_tab[i] * dtn
+                b = cls.rhs_stage(ops, consts, tau, tn, un, vn)
+                x0 = kvs[-1] if kvs else torch.zeros_like(v0)
+                kv, (it, res2) = cg_solve(
+                    lambda x: cls.lhs_pure(ops, consts, tau, x), b, x0, dinv,
+                    rtol=rtol, maxiter=maxiter,
+                )
+                it_max = max(it_max, it)
+                res_max = torch.maximum(res_max, res2)
+                ku = vn + tau * kv
+                kus.append(ku)
+                kvs.append(kv)
+                u_acc = u_acc + (b_tab[i] * dtn) * ku
+                v_acc = v_acc + (b_tab[i] * dtn) * kv
+            if stats is not None:
+                stats.append((it_max, res_max))
+            return u_acc, v_acc, t + dtn
+
+        return step
+
+    def _march(self, t0: float, tf: float, record=None):
+        """Run ``dirk_step`` over ``step_sizes(t0, tf, dt)`` from the model's
+        state; set the state and ``cg_stats``, warn if a stage solve hit
+        ``cg_maxiter``; return the step sizes."""
+        stats = []
+        dts = step_sizes(t0, tf, self.dt)
+        u, v, t = run_steps(self.dirk_step(stats=stats), self.consts, self.u_n, self.v_n, t0,
+                            dts, record=record)
+        it_max = max(it for it, _ in stats)
+        res_max = float(torch.stack([r for _, r in stats]).max())
+        self.cg_stats = {"max_iterations": it_max, "max_residual2": res_max}
+        if it_max >= self.cg_maxiter:
+            warnings.warn(
+                f"DIRK stage CG hit maxiter={self.cg_maxiter} "
+                f"(worst final ||r||^2 = {res_max:.3e}) — solution suspect",
+                stacklevel=3,
+            )
+        self.u_n, self.v_n, self.t = u, v, float(t)
+        return dts
+
+    def dirk(self, t0: float, tf: float):
+        """Time-march with SDIRK; surfaces the worst CG iterations and final
+        ‖r‖² over the run as ``self.cg_stats`` and warns if any stage solve
+        hit ``cg_maxiter``."""
+        self._march(t0, tf)
+        return self.u_n, self.v_n, self.t
+
+    def dirk_record(self, t0: float, tf: float, points):
+        """``dirk`` while recording u at sensor ``points`` [dim, n] after
+        every step, on the device (the implicit counterpart of
+        ``ExplicitModelBase.rk_record``). Returns (u, v, t, times [n_steps]
+        float64 numpy, ys [n_steps, n] device tensor)."""
+        extract = self._record_plan(points)
+        ys = []
+        dts = self._march(t0, tf, record=lambda i, u: ys.append(extract(u)))
+        times = t0 + np.cumsum(dts)
+        return self.u_n, self.v_n, self.t, times, torch.stack(ys)

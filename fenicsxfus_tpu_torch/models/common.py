@@ -1,7 +1,8 @@
 """Shared time-integration machinery for the wave models.
 
 Port of ``fenicsxfus_tpu/models/common.py``. Butcher tables match the
-reference (``python/src/fenicsxfus/_linear.py:40-65``). The time loop is a
+reference (``python/src/fenicsxfus/_linear.py:40-65`` explicit, ``:543-585``
+DIRK). The time loop is a
 plain Python loop over per-step dt values (PyTorch runs eagerly; the JAX
 package's ``lax.scan`` and its launch segmentation have no counterpart here).
 Step start times are precomputed on the host in float64, so the source phase
@@ -35,6 +36,44 @@ def explicit_tables(order: int):
             (0.0, 0.5, 0.5, 1.0),
         )
     raise ValueError(f"unsupported explicit RK order {order}")
+
+
+def dirk_tables(order: int):
+    """SDIRK tables: backward Euler, Crouzeix 2/3-stage, 4-stage.
+
+    ``A`` is a nested tuple (index ``A[i][j]``), all entries Python floats.
+    """
+    if order == 1:
+        return ((1.0,),), (1.0,), (1.0,)
+    if order == 2:
+        return (
+            ((1 / 4, 0.0), (1 / 2, 1 / 4)),
+            (1 / 2, 1 / 2),
+            (1 / 4, 3 / 4),
+        )
+    if order == 3:
+        q = float(2 * np.cos(np.pi / 18) / np.sqrt(3))
+        return (
+            (
+                ((1 + q) / 2, 0.0, 0.0),
+                (-q / 2, (1 + q) / 2, 0.0),
+                (1 + q, -(1 + 2 * q), (1 + q) / 2),
+            ),
+            (1 / (6 * q**2), 1 - 1 / (3 * q**2), 1 / (6 * q**2)),
+            ((1 + q) / 2, 1 / 2, (1 - q) / 2),
+        )
+    if order == 4:
+        return (
+            (
+                (1 / 2, 0.0, 0.0, 0.0),
+                (1 / 6, 1 / 2, 0.0, 0.0),
+                (-1 / 2, 1 / 2, 1 / 2, 0.0),
+                (3 / 2, -3 / 2, 1 / 2, 1 / 2),
+            ),
+            (3 / 2, -3 / 2, 1 / 2, 1 / 2),
+            (1 / 2, 2 / 3, 1 / 2, 1.0),
+        )
+    raise ValueError(f"unsupported DIRK order {order}")
 
 
 def step_sizes(t0: float, tf: float, dt: float) -> np.ndarray:

@@ -1,5 +1,6 @@
-"""Linear second-order wave equation, explicit RK (port of
-``fenicsxfus_tpu/models/linear.py::LinearSpectralExplicit``).
+"""Linear second-order wave equation, explicit RK and SDIRK (port of
+``fenicsxfus_tpu/models/linear.py::LinearSpectralExplicit`` and
+``LinearSpectralImplicit``).
 
 Physics (reference ``python/src/fenicsxfus/_linear.py``):
 
@@ -8,14 +9,17 @@ Physics (reference ``python/src/fenicsxfus/_linear.py``):
 rewritten first-order in time (u, v = ∂u/∂t), with a windowed transducer
 Neumann source g(t) on facet tag 1 and a first-order Sommerfeld ABC
 (1/ρ0 c0) ∂u/∂t on facet tag 2. GLL collocation makes the mass diagonal, so
-the explicit solver never solves a linear system.
+the explicit solver never solves a linear system; the implicit SDIRK
+variant solves (M + τ²K + τ·ABC)·kv = b by matrix-free Jacobi-preconditioned
+CG (reference ``:623-647``), its matvec one stiffness apply (K1 on a 3D
+lattice).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .base import ExplicitModelBase, _cellwise, source_amplitudes
+from .base import ExplicitModelBase, ImplicitModelBase, _cellwise, source_amplitudes
 
 
 class LinearSpectralExplicit(ExplicitModelBase):
@@ -62,3 +66,48 @@ class LinearSpectralExplicit(ExplicitModelBase):
         kin = (v.double() ** 2 / self.consts["inv_m"].double()).sum()
         pot = (u.double() * ku.double()).sum()
         return float(0.5 * (kin + pot))
+
+
+class LinearSpectralImplicit(ImplicitModelBase):
+    """SDIRK linear wave solver (reference ``_linear.py:516-817``)."""
+
+    STIFF_KEYS = ("coeff_u",)
+
+    def __init__(self, mesh, meshtags, degree, c0, rho0, freq0, p0, s0,
+                 rk_order, dt, dtype=torch.float64, device="cuda", cg_rtol=1e-8,
+                 cg_maxiter=2000):
+        super().__init__(mesh, meshtags, degree, freq0, p0, s0, rk_order, dt,
+                         dtype, device, cg_rtol, cg_maxiter)
+        nc = mesh.num_cells
+        c = _cellwise(c0, nc)
+        rho = _cellwise(rho0, nc)
+        ops = self.ops
+        self.consts = self.base_consts()
+        self.consts["m"] = ops.to_device(ops.assemble_diag(1.0 / (rho * c * c)))
+        self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
+        self.consts["kdiag"] = ops.stiffness_diag(1.0 / rho)
+        self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
+        self.consts["abc_diag"] = ops.to_device(ops.facet_vector(self.ABC_TAG, 1.0 / (rho * c)))
+
+    @staticmethod
+    def lhs_pure(ops, c, tau, x):
+        """A x = M x + τ² K x + τ ABC x  (reference a-form :623-631)."""
+        return (
+            c["m"] * x
+            + tau * tau * ops.stiffness_apply([x], [c["coeff_u"]])
+            + tau * c["abc_diag"] * x
+        )
+
+    @staticmethod
+    def lhs_diag_pure(ops, c, tau):
+        return c["m"] + tau * tau * c["kdiag"] + tau * c["abc_diag"]
+
+    @staticmethod
+    def rhs_stage(ops, c, tau, t, u, v):
+        """b = −K(u + τ v) + g·src − ABC·v  (reference L-form :633-639)."""
+        g, _ = source_amplitudes(c, t)
+        return (
+            -ops.stiffness_apply([u + tau * v], [c["coeff_u"]])
+            + g * c["src_vec"]
+            - c["abc_diag"] * v
+        )

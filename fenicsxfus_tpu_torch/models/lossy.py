@@ -1,5 +1,6 @@
-"""Lossy (viscoelastic) wave equation, explicit RK (port of
-``fenicsxfus_tpu/models/lossy.py::LossySpectralExplicit``).
+"""Lossy (viscoelastic) wave equation, explicit RK and SDIRK (port of
+``fenicsxfus_tpu/models/lossy.py::LossySpectralExplicit`` and
+``LossySpectralImplicit``).
 
 Physics (reference ``python/src/fenicsxfus/_lossy.py``): the linear wave
 equation plus a diffusivity-of-sound term δ ∇²(∂u/∂t):
@@ -9,14 +10,16 @@ equation plus a diffusivity-of-sound term δ ∇²(∂u/∂t):
 Weak-form additions to the linear model (reference a/L-forms ``:107-128``):
 the lumped mass gains the facet term ∫_Γ2 (δ/ρc³) u φ ds, the right-hand
 side gains −∫ (δ/ρc²) ∇v·∇φ dx and the source derivative ∫_Γ1 (δ/ρc²) dg φ ds.
-Both stiffness terms go through one two-field stiffness apply.
+Both stiffness terms go through one two-field stiffness apply (K1 with two
+fields on a 3D lattice), in the explicit slope and in the implicit model's
+CG matvec and stage right-hand side alike.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .base import ExplicitModelBase, _cellwise, source_amplitudes
+from .base import ExplicitModelBase, ImplicitModelBase, _cellwise, source_amplitudes
 
 
 class LossySpectralExplicit(ExplicitModelBase):
@@ -59,3 +62,65 @@ class LossySpectralExplicit(ExplicitModelBase):
             - consts["abc_diag"] * v
         )
         return v, b * consts["inv_m"]
+
+
+class LossySpectralImplicit(ImplicitModelBase):
+    """SDIRK lossy solver (reference ``_lossy.py:297-628``)."""
+
+    STIFF_KEYS = ("coeff_u", "coeff_v")
+
+    def __init__(self, mesh, meshtags, degree, c0, rho0, delta0, freq0, p0, s0,
+                 rk_order, dt, dtype=torch.float64, device="cuda", cg_rtol=1e-8,
+                 cg_maxiter=2000):
+        super().__init__(mesh, meshtags, degree, freq0, p0, s0, rk_order, dt,
+                         dtype, device, cg_rtol, cg_maxiter)
+        nc = mesh.num_cells
+        c = _cellwise(c0, nc)
+        rho = _cellwise(rho0, nc)
+        delta = _cellwise(delta0, nc)
+        ops = self.ops
+        self.consts = self.base_consts()
+        self.consts["m"] = ops.to_device(
+            ops.assemble_diag(1.0 / (rho * c * c))
+            + ops.facet_vector(self.ABC_TAG, delta / (rho * c**3))
+        )
+        self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
+        self.consts["coeff_v"] = ops.stiff_coeff(delta / (rho * c * c))
+        self.consts["kdiag_u"] = ops.stiffness_diag(1.0 / rho)
+        self.consts["kdiag_v"] = ops.stiffness_diag(delta / (rho * c * c))
+        self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
+        self.consts["src_vec_d"] = ops.to_device(
+            ops.facet_vector(self.SOURCE_TAG, delta / (rho * c * c))
+        )
+        self.consts["abc_diag"] = ops.to_device(ops.facet_vector(self.ABC_TAG, 1.0 / (rho * c)))
+
+    @staticmethod
+    def lhs_pure(ops, c, tau, x):
+        """A x = M x + τ²K_{1/ρ} x + τK_{δ/ρc²} x + τ ABC x
+        (reference a-form ``_lossy.py:410-427``)."""
+        return (
+            c["m"] * x
+            + ops.stiffness_apply([tau * tau * x, tau * x], [c["coeff_u"], c["coeff_v"]])
+            + tau * c["abc_diag"] * x
+        )
+
+    @staticmethod
+    def lhs_diag_pure(ops, c, tau):
+        return (
+            c["m"]
+            + tau * tau * c["kdiag_u"]
+            + tau * c["kdiag_v"]
+            + tau * c["abc_diag"]
+        )
+
+    @staticmethod
+    def rhs_stage(ops, c, tau, t, u, v):
+        """b = −K_{1/ρ}(u + τ v) − K_{δ/ρc²}(v) + g·src + dg·srcδ − ABC·v
+        (reference L-form ``_lossy.py:429-445``)."""
+        g, dg = source_amplitudes(c, t)
+        return (
+            -ops.stiffness_apply([u + tau * v, v], [c["coeff_u"], c["coeff_v"]])
+            + g * c["src_vec"]
+            + dg * c["src_vec_d"]
+            - c["abc_diag"] * v
+        )

@@ -11,13 +11,18 @@ GLL weights, geometry and coefficient folded onto the mixed representation
 [.., na·N, ..] (axis-aligned ⇒ no cross-axis terms).
 
 This module holds the host-side (numpy) setup — folded weights, geometry
-factors, the lumped-mass diagonal, scale tensors — and ``apply_scaled``, a
-d-generic plain torch version of the formula above. ``apply_scaled`` is the
-oracle that the packed K1 form (``ops/stiffness.py``) is held against; it is
-written from D, w and S separately, not from K1 and the packed F tensors.
+factors, the lumped-mass and stiffness diagonals, scale tensors — and
+``apply_scaled``, a d-generic plain torch version of the formula above.
+``apply_scaled`` is the oracle that the packed K1 form
+(``ops/stiffness.py``) is held against, written from D, w and S
+separately, not from K1 and the packed F tensors; on 1D and 2D lattices,
+which have no kernel (the JAX package runs them through its own
+``apply_scaled`` too), it is the stiffness itself.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -28,6 +33,13 @@ from ..core.gll import diff_matrix, gll_points_weights_01
 def numpy_dtype(dtype: torch.dtype):
     """Host dtype used for one-time assembly in the device dtype."""
     return np.float32 if dtype == torch.float32 else np.float64
+
+
+@functools.lru_cache(maxsize=None)
+def _diff_tensor(N: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The GLL derivative matrix D [N, N] on a device, made once (a copy
+    from the host at every apply would wait for the device)."""
+    return torch.as_tensor(diff_matrix(N), dtype=dtype, device=device)
 
 
 def _folded_weights(n_cells: int, p: int) -> np.ndarray:
@@ -130,17 +142,39 @@ class LatticeStiffness:
             t = self._fold_weighted(t, a)
         return t.reshape(-1)
 
+    def stiffness_diag(self, coeff_cells) -> np.ndarray:
+        """Assembled stiffness diagonal on the lattice (host, numpy):
+        per cell diag(K)_((i,j,k)) = Σ_a geo_a · d2[i_a] · Π_{b≠a} w_{i_b}
+        with d2[n] = Σ_q w_q D[q,n]² (axis-aligned ⇒ no off-diagonal G),
+        folded index-free onto the lattice (O(ndofs) memory). Returns the
+        flat [ndofs] vector. Folds run in the device dtype."""
+        npdt = numpy_dtype(self.dtype)
+        arr = np.asarray(coeff_cells, npdt)
+        if arr.ndim == 0:
+            arr = np.full(self.grid, arr, npdt)
+        arr = arr.reshape(self.grid)
+        D = diff_matrix(self.N)
+        d2 = (self._w1[:, None] * D**2).sum(axis=0)  # [N]
+        out = np.zeros(self.gdims, npdt)
+        for a in range(self.d):
+            t = arr * npdt(self._geo[a])
+            for b in range(self.d):
+                t = self._fold_weighted(t, b, w=(d2 if b == a else None))
+            out += t
+        return out.reshape(-1)
+
     # -------------------------------------------------------------- apply
 
     def _scale_tensor(self, scales_a, like: torch.Tensor) -> torch.Tensor:
         """Mixed-representation scale tensor of one axis on ``like``'s device."""
         if isinstance(scales_a, tuple):  # (scalar, [vec per axis]) rank-1
             fac, vecs = scales_a
-            s = torch.full((1,) * self.d, fac, dtype=like.dtype, device=like.device)
+            s = None
             for b, v in enumerate(vecs):
                 shape = [1] * self.d
                 shape[b] = len(v)
-                s = s * torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(shape)
+                t = torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(shape)
+                s = fac * t if s is None else s * t
             return s
         return torch.as_tensor(scales_a, dtype=like.dtype, device=like.device)
 
@@ -151,20 +185,20 @@ class LatticeStiffness:
         output of ``scales_const`` or ``scales_field``. Plain torch, any d.
         """
         p, N = self.p, self.N
-        x0 = xs_and_scales[0][0]
-        D = torch.as_tensor(diff_matrix(N), dtype=x0.dtype, device=x0.device)
+        pairs = [(x.reshape(self.gdims), scales) for x, scales in xs_and_scales]
+        D = _diff_tensor(N, pairs[0][0].dtype, pairs[0][0].device)
         y = None
         for a in range(self.d):
             n = self.grid[a]
             acc = None
-            for x, scales in xs_and_scales:
-                win = x.reshape(self.gdims).movedim(a, -1).unfold(-1, N, p)  # [.., n, N]
+            for x, scales in pairs:
+                win = x.movedim(a, -1).unfold(-1, N, p)  # [.., n, N]
                 du = win @ D.T  # du[c, q] = Σ_j D[q, j] x[c·p + j]
                 s = self._scale_tensor(scales[a], x).expand(
                     self.gdims[:a] + (n * N,) + self.gdims[a + 1 :]
                 )
                 s = s.movedim(a, -1).reshape(du.shape)
-                acc = s * du if acc is None else acc + s * du
+                acc = s * du if acc is None else torch.addcmul(acc, s, du)
             back = acc @ D  # back[c, k] = Σ_q D[q, k] (S∘du)[c, q]
             ya = back.new_zeros(back.shape[:-2] + (self.gdims[a],))
             ya[..., : n * p] = back[..., :p].flatten(-2)

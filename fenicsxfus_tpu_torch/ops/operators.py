@@ -1,38 +1,46 @@
-"""Spectral-element operators on a uniform or bowl-fitted 3D lattice.
+"""Spectral-element operators on a uniform lattice (1D, 2D or 3D) or a
+bowl-fitted 3D lattice.
 
 Port of the lattice subset of ``fenicsxfus_tpu/ops/operators.py::
 SEMOperators``: with collocated GLL quadrature every mass-type term is
 diagonal, so the lumped mass and the boundary source/ABC vectors are
 assembled once on the host (numpy) and applied as elementwise products; the
-stiffness runs the packed K1 form (``ops/stiffness.py``).
+stiffness runs the packed K1 form (``ops/stiffness.py``) on a 3D lattice.
+On a 1D or 2D lattice, where the JAX package has no Pallas kernel and runs
+``LatticeStiffness.apply_scaled``, the port runs its own d-generic
+``apply_scaled`` (plain torch ops on the fields' device) over the lattice
+scales of ``stiff_coeff``. ``stiffness_diag`` (the Jacobi preconditioner of
+the implicit models) is an index-free host fold.
 
 A bowl-fitted lattice (``core/bowl.py::create_bowl_box``: only its first
 ``blend_layers`` x-layers of cells are deformed, the rest is the uniform
 box ``uniform_box``) takes the hybrid path of the JAX package: the stiffness
 splits as K = K_uniform(whole lattice) + K_{c·(G_cell − G_uniform)}(slab),
 the first term K1 on the uniform box's lattice and the second the slab
-correction K6 (``ops/band.py``); the lumped mass gains the slab's
-per-cell correction the same way. ``FUS_HYBRID=0`` (the JAX package's
-general per-cell path) is not ported and raises on a deformed mesh, as do
-other non-uniform, non-axis-aligned and non-3D meshes.
+correction K6 (``ops/band.py``); the lumped mass and the stiffness diagonal
+gain the slab's per-cell corrections the same way. ``FUS_HYBRID=0`` (the
+JAX package's general per-cell path) is not ported and raises on a
+deformed mesh, as do other non-uniform, non-axis-aligned and unstructured
+meshes.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 
 import numpy as np
 import torch
 
-from ..core.geometry import facet_factors, is_uniform_mesh, volume_factors
+from ..core.geometry import SYM_PAIRS, facet_factors, is_uniform_mesh, volume_factors
 from ..core.gll import diff_matrix
 from ..core.mesh import Mesh
 from ..core.space import build_space
 from ..utils import resolve_device
 from .band import band_correction_rows
 from .lattice import LatticeStiffness, numpy_dtype
-from .stiffness import pack_const, pack_field, stiffness_apply
+from .stiffness import pack_const, pack_field, stiffness_apply, stiffness_plain
 
 
 def _one_cell(lo, h) -> Mesh:
@@ -45,12 +53,13 @@ def _one_cell(lo, h) -> Mesh:
 
 
 class SEMOperators:
-    """Operator data for one function space on a uniform or bowl-fitted 3D
-    lattice.
+    """Operator data for one function space on a uniform lattice (d = 1, 2
+    or 3) or a bowl-fitted 3D lattice.
 
     Parameters
     ----------
-    mesh : core.mesh.Mesh from ``create_box`` or ``create_bowl_box``
+    mesh : core.mesh.Mesh from ``create_interval``, ``create_rectangle``,
+        ``create_box`` or ``create_bowl_box``
     degree : polynomial degree p (GLL basis has N = p+1 nodes per axis)
     dtype : torch dtype of the device fields
     device : torch device of the fields (default the card; the CPU only
@@ -59,14 +68,22 @@ class SEMOperators:
     ``hybrid`` is None on a uniform lattice; on a bowl-fitted one it holds
     the slab: ``bx`` cell layers, ``nb`` cells, their ``blocks`` per axis,
     ``slab_x`` lattice rows, the correction factors ``G_corr`` [6, nb, N,
-    N, N] on the device and ``wdetJ_corr_np`` [nb, N**3] on the host.
+    N, N] on the device and, on the host, the same factors ``G_corr_np``
+    in float64 and the mass correction ``wdetJ_corr_np`` [nb, N**3].
     ``setup_seconds`` holds the host time of the hybrid setup's parts.
+
+    ``stiffness_fn`` is the 3D stiffness function ``(xs, Fs, p) -> y``:
+    ``ops.stiffness.stiffness_apply``, the K1 wrapper, unless ``plain()``
+    made this copy, whose 3D stiffness is ``stiffness_plain`` on any device.
     """
 
+    stiffness_fn = staticmethod(stiffness_apply)
+
     def __init__(self, mesh, degree: int, dtype=torch.float32, device="cuda"):
-        if mesh.dim != 3 or mesh.grid_shape is None:
+        if mesh.grid_shape is None:
             raise NotImplementedError(
-                "only structured 3D meshes (create_box, create_bowl_box) are ported")
+                "only structured meshes (create_interval, create_rectangle, create_box, "
+                "create_bowl_box) are ported")
         self.mesh = mesh
         self.degree = degree
         self.dtype = dtype
@@ -102,8 +119,9 @@ class SEMOperators:
             cells=np.arange(2**d, dtype=np.int64)[None, :],
         )
         _, G = volume_factors(sub, self.N)
-        off = np.delete(G[0], [0, 3, 5], axis=-1)
-        if np.max(np.abs(off)) >= 1e-12 * np.max(np.abs(G[0])):
+        diag = [i for i, (a, b) in enumerate(SYM_PAIRS[d]) if a == b]
+        off = np.delete(G[0], diag, axis=-1)
+        if off.size and np.max(np.abs(off)) >= 1e-12 * np.max(np.abs(G[0])):
             raise NotImplementedError("only axis-aligned lattices are ported")
         lo = mesh.vertices.min(axis=0)
         hi = mesh.vertices.max(axis=0)
@@ -137,6 +155,7 @@ class SEMOperators:
             "blocks": blocks,
             "slab_x": bx * p + 1,
             "G_corr": self.to_device(G_corr),
+            "G_corr_np": G_corr,
             "wdetJ_corr_np": wdetJ_b - wdetJ_u,
         }
         self.D = self.to_device(diff_matrix(N))
@@ -184,12 +203,26 @@ class SEMOperators:
             return pack_const(self.lattice, float(arr.reshape(-1)[0]), self.device)
         return pack_field(self.lattice, arr, self.device)
 
-    def stiff_coeff(self, coeff) -> dict:
+    def pack_scales(self, coeff):
+        """The lattice scales of a DG-0 coefficient on the device (the JAX
+        package's ``pack_scales``): a constant one as a list, per axis, of
+        (scalar, [one vector per axis]); a cell-resolved one as a tuple of
+        the per-axis scale tensors of ``LatticeStiffness.scales_field``."""
+        arr = np.asarray(coeff, np.float64)
+        if arr.ndim == 0 or (arr.size == self.num_cells and np.ptp(arr) == 0):
+            return [(fac, [self.to_device(v) for v in vecs])
+                    for fac, vecs in self.lattice.scales_const(float(arr.reshape(-1)[0]))]
+        return tuple(self.to_device(t) for t in self.lattice.scales_field(arr))
+
+    def stiff_coeff(self, coeff):
         """A DG-0 stiffness coefficient (scalar or [Nc]) prepared on the
-        device: the packed F tensors on a uniform lattice; on a hybrid one
+        device: the packed F tensors on a uniform 3D lattice, the lattice
+        scales (``pack_scales``) on a 1D or 2D one; on a hybrid lattice
         {"hyb_u": the packed F tensors of the uniform part, "hyb_b": the
         slab cells' coefficients [nb], "hyb_G": the slab's correction
         factors, shared by every coefficient}."""
+        if self.d != 3:
+            return self.pack_scales(coeff)
         if self.hybrid is None:
             return self._pack(coeff)
         if isinstance(coeff, dict) and "hyb_u" in coeff:
@@ -214,18 +247,44 @@ class SEMOperators:
         ``xs``: global vectors [ndofs] (or lattice-shaped); ``coeffs``:
         coefficients from ``stiff_coeff`` (on a hybrid lattice raw DG-0
         coefficients are prepared here). Returns a flat [ndofs] vector. On a
-        hybrid lattice: K1 (or K4a then K4b under ``FUS_V3=0``) of the
-        uniform parts, plus the slab correction K6 added onto the slab
-        rows."""
+        3D lattice ``stiffness_fn``: K1 (or K4a then K4b under
+        ``FUS_V3=0``); on a 1D or 2D lattice ``LatticeStiffness.
+        apply_scaled``. On a hybrid lattice: the same of the uniform parts,
+        plus the slab correction K6 added onto the slab rows."""
         x3 = [x.reshape(self.gdims) for x in xs]
+        if self.d != 3:
+            return self.lattice.apply_scaled(list(zip(x3, coeffs))).reshape(-1)
         if self.hybrid is None:
-            return stiffness_apply(x3, coeffs, self.degree).reshape(-1)
+            return self.stiffness_fn(x3, coeffs, self.degree).reshape(-1)
         cs = [self.stiff_coeff(c) for c in coeffs]
-        y = stiffness_apply(x3, [c["hyb_u"] for c in cs], self.degree)
+        y = self.stiffness_fn(x3, [c["hyb_u"] for c in cs], self.degree)
         sx = self.hybrid["slab_x"]
         y[:sx] += self.band_correction_rows(
             [x[:sx] for x in x3], [c["hyb_b"] for c in cs], cs[0]["hyb_G"])
         return y.reshape(-1)
+
+    def plain(self) -> "SEMOperators":
+        """A shallow copy of these operators whose 3D stiffness runs
+        ``stiffness_plain`` (no kernel) on any device; everything else is
+        shared."""
+        ops = copy.copy(self)
+        ops.stiffness_fn = stiffness_plain
+        return ops
+
+    def stiffness_diag(self, cell_coeff) -> torch.Tensor:
+        """Assembled diagonal of the stiffness matrix of a DG-0 coefficient
+        (the Jacobi preconditioner of the implicit models; the reference
+        uses PETSc PC Jacobi, ``_linear.py:644-647``): the index-free host
+        fold ``LatticeStiffness.stiffness_diag``, on a hybrid lattice plus
+        the slab cells' corrections. Flat [ndofs] on the device."""
+        kd = self.lattice.stiffness_diag(np.asarray(cell_coeff))
+        if self.hybrid is not None:
+            # the slab cells' stiffness-diagonal corrections [nb, N**3]
+            nb = self.hybrid["nb"]
+            diag_b = _stiffness_diag_cells_np(
+                np.moveaxis(self.hybrid["G_corr_np"], 0, -1), self.N, self.d, nb)
+            kd = kd + self._diag_band_np(cell_coeff, diag_b.reshape(nb, -1))
+        return self.to_device(kd)
 
     # ------------------------------------------------------------------ facets
 
@@ -286,3 +345,27 @@ class SEMOperators:
     def interpolate(self, fn) -> torch.Tensor:
         """Nodal interpolation of ``fn(x)`` (x: [dim, ndofs]) onto the space."""
         return self.to_device(fn(self.space.dof_coords.T))
+
+
+def _stiffness_diag_cells_np(G, N: int, d: int, num_cells: int) -> np.ndarray:
+    """Per-cell diagonal entries of the stiffness matrix on the host:
+    diag[c, i] = Σ_q Σ_ab B_a[q,i] G[c,q,ab] B_b[q,i] for the GLL-collocated
+    basis (B_a is the Kronecker derivative along axis a, whose rows reduce
+    to D along axis a and identity elsewhere). ``G`` [num_cells, N, ..., N,
+    nsym] broadcasts over a leading axis of 1 or ``num_cells``."""
+    Dnp = diff_matrix(N)
+    sym = {pair: i for i, pair in enumerate(SYM_PAIRS[d])}
+    diag = np.zeros((num_cells,) + (N,) * d)
+    D2 = Dnp**2  # [q, n]
+    for a in range(d):
+        Gaa = G[..., sym[(a, a)]]
+        diag += np.moveaxis(
+            np.tensordot(np.moveaxis(Gaa, 1 + a, -1), D2, axes=([-1], [0])), -1, 1 + a)
+    ddiag = np.diag(Dnp)
+    for a in range(d):
+        for b in range(a + 1, d):
+            Gab = G[..., sym[(a, b)]]
+            diag += 2.0 * Gab * np.expand_dims(
+                ddiag, tuple(i for i in range(d) if i != a)
+            ) * np.expand_dims(ddiag, tuple(i for i in range(d) if i != b))
+    return diag

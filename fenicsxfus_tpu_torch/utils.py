@@ -1,7 +1,8 @@
 """Utility functions (port of ``fenicsxfus_tpu/utils.py``, reference
 ``python/src/fenicsxfus/utils.py``): the device resolution of the port's
 entry points, the diffusivity of sound, the point location of sensors on
-deformed cells (``compute_eval_params``) and the spectral stable time step
+deformed cells (``compute_eval_params``), the evaluation of a field at
+points (``eval_function``) and the spectral stable time step
 (``estimate_stable_dt``)."""
 
 from __future__ import annotations
@@ -86,6 +87,30 @@ def _inverse_map(cell_verts: np.ndarray, p: np.ndarray, d: int, iters: int = 30)
     if np.all(xi > -1e-8) and np.all(xi < 1 + 1e-8):
         return np.clip(xi, 0.0, 1.0)
     return None
+
+
+def eval_function(ops, u, points: np.ndarray):
+    """Evaluate a nodal field at physical points ``points`` [dim, n]: the
+    sensor-extraction analogue of DOLFINx ``Function.eval`` (reference
+    ``exp2.py`` tail). ``u`` is a flat field (tensor or array) on ``ops``'s
+    space; only the nodes of the cells holding the points are read from its
+    device. Returns (points found [n_found, dim], values [n_found]) as
+    float64 numpy."""
+    from .core.gll import lagrange_eval_gll
+
+    pts, cells, xis = compute_eval_params(ops.mesh, points)
+    rows = np.asarray(ops.space.dofmap_for_cells(cells), np.int64)  # [n, N**d]
+    flat = torch.as_tensor(u).reshape(-1)
+    uc = flat[torch.as_tensor(rows, device=flat.device)].double().cpu().numpy()
+    N, d = ops.N, ops.d
+    vals = np.zeros(len(cells))
+    for i in range(len(cells)):
+        tab = [lagrange_eval_gll(N, np.array([xis[i, a]]))[0] for a in range(d)]
+        w = tab[0]
+        for t in tab[1:]:
+            w = np.multiply.outer(w, t).reshape(-1)
+        vals[i] = w @ uc[i]
+    return pts, vals
 
 
 def estimate_stable_dt(ops, c0, rho0, rk_order: int = 4, safety: float = 0.85,

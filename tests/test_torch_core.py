@@ -96,9 +96,38 @@ def test_mass_and_facet_vectors_match_jax(grid, hi, degree, hetero):
         )
 
 
+@pytest.mark.parametrize("hetero", [False, True])
+def test_rectangle_operators_match_jax(hetero):
+    """A create_rectangle((4, 3)) lattice (which raised before the 2D
+    lattices were ported): mass, facet vectors, stiffness diagonal and the
+    stiffness apply (constant and DG-0, one and two fields) equal the JAX
+    package's on the CPU in fp64."""
+    jm, tm = (mod.create_rectangle((4, 3), (0, 0), (1.0, 0.6)) for mod in (jmesh, tmesh))
+    for mod, m in ((jmesh, jm), (tmesh, tm)):
+        mod.tag_boundaries(m, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > 1 - 1e-12},
+                           default=3)
+    rng = np.random.default_rng(8)
+    coeff = rng.uniform(0.5, 2.0, jm.num_cells) if hetero else 1.7
+    jops = JaxOps(jm, 2, dtype=jnp.float64)
+    tops = SEMOperators(tm, 2, dtype=torch.float64, device="cpu")
+    assert tops.d == 2 and tops.gdims == jops.lattice.gdims == (9, 7)
+    assert np.array_equal(np.asarray(jops.assemble_diag(coeff)), tops.assemble_diag(coeff))
+    for tag in (1, 2, 3):
+        assert np.array_equal(np.asarray(jops.facet_vector(tag, coeff)),
+                              tops.facet_vector(tag, coeff))
+    assert np.array_equal(np.asarray(jops.stiffness_diag(coeff)),
+                          tops.stiffness_diag(coeff).numpy())
+    x = rng.standard_normal((2, tops.ndofs))
+    for n in (1, 2):
+        cs = [coeff, 0.3][:n]
+        y = tops.stiffness_apply([torch.from_numpy(v) for v in x[:n]],
+                                 [tops.stiff_coeff(c) for c in cs]).numpy()
+        jy = np.asarray(jops.stiffness_apply([jnp.asarray(v) for v in x[:n]],
+                                             [jops.stiff_coeff(c) for c in cs]))
+        assert np.max(np.abs(y - jy)) <= 1e-13 * np.max(np.abs(jy))
+
+
 def test_unsupported_meshes_raise():
-    with pytest.raises(NotImplementedError):
-        SEMOperators(tmesh.create_rectangle((4, 3)), 2, device="cpu")
     bent = tmesh.create_box((3, 3, 3))
     bent.vertices = bent.vertices.copy()
     bent.vertices[:, 0] += 0.05 * bent.vertices[:, 1] ** 2
@@ -114,7 +143,8 @@ def test_port_imports_no_jax():
         "fenicsxfus_tpu_torch.analysis.analytical, fenicsxfus_tpu_torch.utils, "
         "fenicsxfus_tpu_torch.models.lossy, fenicsxfus_tpu_torch.models.westervelt, "
         "fenicsxfus_tpu_torch.models.focused, fenicsxfus_tpu_torch.drivers.hitu, "
-        "fenicsxfus_tpu_torch.ops.stage_ab, fenicsxfus_tpu_torch.ops.step_wave, chip_smoke; "
+        "fenicsxfus_tpu_torch.ops.stage_ab, fenicsxfus_tpu_torch.ops.step_wave, "
+        "fenicsxfus_tpu_torch.ops.cg, chip_smoke; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -139,6 +169,9 @@ ENTRY_POINTS = {
     "WesterveltSpectralFocused": lambda: ft.WesterveltSpectralFocused(
         _box(), delta0=0.0, beta0=3.5, aperture_radius=0.2, focal_distance=0.6,
         **_MODEL_ARGS),
+    "LinearSpectralImplicit": lambda: ft.LinearSpectralImplicit(_box(), **_MODEL_ARGS),
+    "LossySpectralImplicit": lambda: ft.LossySpectralImplicit(_box(), delta0=0.0,
+                                                              **_MODEL_ARGS),
     "hitu.build_model": lambda: hitu.build_model("W", "H101", "WATER", nx=4, degree=2),
     "pack_const": lambda: pack_const(LatticeStiffness((2, 2, 2), 2, (0.5,) * 3,
                                                       torch.float64), 1.0),

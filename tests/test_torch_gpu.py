@@ -785,3 +785,38 @@ def test_bowl_model_on_gpu_matches_cpu(cuda):
     assert outs[0][2] == 0 and outs[1][2] == 20
     assert _rel(outs[1][0], outs[0][0]) < 1e-12
     assert _rel(outs[1][1], outs[0][1]) < 1e-12
+
+
+# The implicit (SDIRK) models on the card: K1 is the CG matvec in fp64, one
+# field (linear) or two (lossy), on a uniform box and on a bowl mesh; the
+# same steps through the plain stiffness (``SEMOperators.plain()``) give
+# the same CG iteration counts and fields within 1e-10.
+@pytest.mark.parametrize("mesh_kind", ["box", "bowl"])
+@pytest.mark.parametrize("kind", ["linear", "lossy"])
+def test_implicit_model_k1_matches_plain(kind, mesh_kind, cuda):
+    from fenicsxfus_tpu_torch import LinearSpectralImplicit, LossySpectralImplicit, create_bowl_box
+    from fenicsxfus_tpu_torch.models.common import run_steps
+
+    if mesh_kind == "box":
+        mesh = create_box((7, 4, 5), (0, 0, 0), (1.0, 0.6, 0.7))
+    else:
+        mesh = create_bowl_box((16, 7, 7), (0, 0, 0), (1.0, 0.9, 0.9), 0.9, 0.25,
+                               blend=0.08, lateral_hold=0.08)[0]
+    tag_boundaries(mesh, {1: lambda x: x[0] < 1e-9}, default=2)
+    rng = np.random.default_rng(12)
+    c0 = rng.uniform(0.9, 1.1, mesh.num_cells)
+    args = (3, c0, 1.0) + ((2e-3,) if kind == "lossy" else ()) + (3.0, 1.0, 1.0, 4, 2e-3)
+    cls = LossySpectralImplicit if kind == "lossy" else LinearSpectralImplicit
+    model = cls(mesh, None, *args, device=cuda)
+    u0, v0 = state_from_numpy(1e-3 * rng.standard_normal(model.ops.ndofs),
+                              rng.standard_normal(model.ops.ndofs), device=cuda)
+    runs = []
+    for ops in (None, model.ops.plain()):
+        stats = []
+        before = stiffness_apply.launches
+        u, v, _ = run_steps(model.dirk_step(ops=ops, stats=stats), model.consts, u0, v0, 0.0,
+                            [model.dt] * 3)
+        runs.append((u, v, [s[0] for s in stats], stiffness_apply.launches - before))
+    (uk, vk, ik, nk), (up, vp, ip, npl) = runs
+    assert nk > 0 and npl == 0 and ik == ip
+    assert _rel(uk, up) < 1e-10 and _rel(vk, vp) < 1e-10
