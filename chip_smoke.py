@@ -119,7 +119,23 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    then HITU W-H101-WATER on the bowl mesh with ``FUS_HYBRID=0`` (every
    step on the general path, no kernel launched), its focal peak held
    against phase 13's hybrid run (1e-4), and the bowl O'Neil check on the
-   general path.
+   general path;
+16. the rest of the model family (no new kernel: K1 is the only one on
+   these paths), each through its entry point at full width and held
+   against its plain path: ``LinearSpectralS2`` on the HITU lattice (fp32,
+   the default Heaviside window, 3 steps against ``ops.plain()``, 200 timed
+   RK4 steps through K1 a stage) and its checkpoint round trip (100 + 100
+   steps through ``io/checkpoint.py`` equal to 200 steps bit for bit);
+   ``LinearSpectralSponge`` on the HITU box extended to x = 0.15 m
+   ((401,189,189) nodes, fp32, 200 steps, the nodal δ apply and K1 timed a
+   stage); ``LinearSpectralNewmark`` on the headline box (fp64, 10 steps,
+   K1 the CG matvec, one step against the plain stiffness with the same CG
+   counts); ``LinearSpectralAdaptive`` and ``WesterveltSpectralAdaptive``
+   on the HITU lattice (fp64, two source periods, the first 5 attempts
+   against the plain path); ``LinearExplicit`` (Gauss quadrature, fp64) on
+   ``create_box((54,)*3)``, 5 RK4 steps, its operators timed beside their
+   floors; K1 at each of these shapes against its plain version; and the
+   CPU tests' gates of these models on the card.
 
 Each phase prints its wall time. Every kernel wrapper counts its launches;
 the counts are set to 0 just before a main path runs and read just after.
@@ -2174,6 +2190,546 @@ def phase_general(device, card, hybrid: dict) -> dict:
     return {"solve": solve, "ops": ops, "bowl": bowl}
 
 
+# ------------------------------------------- [16] the rest of the model family
+S2_STEPS = 200
+SPONGE_GRID = (100, 47, 47)  # the HITU box extended to x = 0.15 m: (401, 189, 189) nodes
+SPONGE_L = 0.15
+NEWMARK_STEPS = 10
+ADAPTIVE_PERIODS = 2
+GAUSS_NX = 54  # create_box((54,)*3) over the unit box, p = 4: 10,218,313 DOF
+GAUSS_STEPS = 5
+
+
+def hitu_box(grid, L, aperture: bool):
+    """The HITU W-H101 box [0, L] x [-W/2, W/2]^2 on ``grid`` cells: source
+    (tag 1) on the flat aperture r <= a of x = 0 (``aperture``) or on the
+    whole face, the ABC (tag 2) on every other facet."""
+    import fenicsxfus_tpu_torch as ft
+    from fenicsxfus_tpu_torch.drivers import hitu
+
+    g = hitu.TRANSDUCERS["H101"]
+    W, a = g["W"], g["a"]
+    mesh = ft.create_box(grid, (0.0, -W / 2, -W / 2), (L, W / 2, W / 2))
+    src = ((lambda x: (x[0] < 1e-9) & (np.hypot(x[1], x[2]) <= a)) if aperture
+           else (lambda x: x[0] < 1e-9))
+    ft.tag_boundaries(mesh, {1: src}, default=2)
+    return mesh
+
+
+def water(f0: float):
+    """(c0, rho0, p0, delta0, beta0) of W-H101-WATER at ``f0``, and the
+    driver's dt at the HITU cell size."""
+    from fenicsxfus_tpu_torch.drivers import hitu
+
+    c0, rho0, p0, delta0, beta0 = hitu._medium("W", "H101", "WATER", f0, False)
+    dt, _ = hitu._cfl_dt(0.4, hitu.TRANSDUCERS["H101"]["L"] / HITU_GRID[0], c0, 4, f0)
+    return c0, rho0, p0, delta0, beta0, dt
+
+
+def k1_on_model(model, keys, card, tag) -> dict:
+    """K1 with ``model``'s own packed coefficients ``keys`` (one or two
+    fields) on seeded random fields at its lattice, against its plain
+    version: error, CUDA-event times and the bound (fp32 or fp64 rate by
+    the model's dtype)."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.stiffness import stiffness_apply, stiffness_plain
+
+    ops, dtype = model.ops, model.dtype
+    gen = torch.Generator(device=model.device).manual_seed(16)
+    xs = [torch.randn(ops.gdims, generator=gen, device=model.device, dtype=dtype)
+          for _ in keys]
+    Fs = [model.consts[k] for k in keys]
+    p = ops.degree
+    rel, err = rel_err(stiffness_apply(xs, Fs, p), stiffness_plain(xs, Fs, p))
+    ms = cuda_median_ms(lambda: stiffness_apply(xs, Fs, p))
+    pms = cuda_median_ms(lambda: stiffness_plain(xs, Fs, p))
+    rate = FP64_FLOP_PER_S if dtype == torch.float64 else FP32_FLOP_PER_S
+    bound = floor_ms(nbytes(xs, Fs), nbytes(xs[0]),
+                     stencil_flops(ops.gdims, p, len(keys), (0, 1, 2)), rate)
+    say(f"{tag} K1 {str(dtype).split('.')[-1]} {len(keys)} field(s) at {ops.gdims}: "
+        f"max|dy|/max|y| = {rel:.3e}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"{share_text(bound, ms)} (median of 10, CUDA events; {card})")
+    if not rel <= (TOL64 if dtype == torch.float64 else TOL):
+        raise AssertionError(f"{tag} K1 disagrees with its plain version: {rel:.3e}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bound}
+
+
+def explicit_against_plain(model, tag: str, steps: int = 3, gate: float = TOL) -> float:
+    """``steps`` unfused RK steps from a seeded random (u, v) through the
+    model's kernels and through ``ops.plain()``: max rel diff <= ``gate``."""
+    import torch
+
+    from fenicsxfus_tpu_torch.models.common import run_steps
+
+    gen = torch.Generator(device=model.device).manual_seed(161)
+    n = model.ops.ndofs
+    u0 = 1e-3 * torch.randn(n, generator=gen, device=model.device, dtype=model.dtype)
+    v0 = torch.randn(n, generator=gen, device=model.device, dtype=model.dtype)
+    dts = [model.dt] * steps
+    uk, vk, _ = run_steps(model.unfused_step(), model.consts, u0, v0, 0.0, dts)
+    up, vp, _ = run_steps(model.unfused_step(ops=model.ops.plain()), model.consts, u0, v0,
+                          0.0, dts)
+    torch.cuda.synchronize()
+    worst = max(rel_err(uk, up)[0], rel_err(vk, vp)[0])
+    say(f"{tag} {steps} steps from a random state, K1 against the plain stiffness: max rel "
+        f"diff {worst:.3e} (gate {gate:g})")
+    if not worst <= gate:
+        raise AssertionError(f"{tag} the K1 path disagrees with the plain path: {worst:.3e}")
+    return worst
+
+
+def timed_rk(model, steps: int, tag: str, card) -> dict:
+    """``model.rk`` over ``steps`` steps from zero, counts from 0 just
+    before and read just after: K1 once a stage and no other kernel."""
+    import torch
+
+    model.init()
+    reset_counts()
+    t0 = time.perf_counter()
+    u, v, t = model.rk(0.0, steps * model.dt)
+    torch.cuda.synchronize()
+    solve = time.perf_counter() - t0
+    launches = counts()
+    ndofs = model.number_of_dofs()
+    rate = ndofs * steps / solve / 1e9
+    say(f"{tag} {steps} RK4 steps ({model.step_kind} step): solve {solve:.3f} s, "
+        f"{rate:.4f} GDOF-RK4-updates/s, K1 launches {launches['K1']}, max|u| "
+        f"{float(u.abs().max()):.6e} ({card})")
+    if model.step_kind != "unfused" or launches["K1"] != 4 * steps:
+        raise AssertionError(f"{tag} expected K1 4 times a step: {launches}")
+    if any(launches[k] for k in ("K4a", "K4b") + STAGE_KERNELS):
+        raise AssertionError(f"{tag} another kernel ran: {launches}")
+    if not (torch.isfinite(u).all() and float(u.abs().max()) > 0):
+        raise AssertionError(f"{tag} the state is not finite and nonzero")
+    return {"u": u, "v": v, "t": t, "solve_s": solve, "rate": rate, "launches": launches}
+
+
+def phase_s2(device, card) -> dict:
+    """[16a] ``LinearSpectralS2`` on the HITU W-H101-WATER lattice (80, 47,
+    47) cells, p = 4, fp32, the default Heaviside window on x1 in [-0.011,
+    0.011] over the whole x = 0 face; 3 steps against the plain path, then
+    S2_STEPS timed RK4 steps; [16g] the checkpoint round trip: S2_STEPS / 2
+    steps, save, reset, load, S2_STEPS / 2 steps, equal bit for bit to the
+    timed run."""
+    import tempfile
+
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+    from fenicsxfus_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    f0 = 0.5e6
+    c0, rho0, p0, _, _, dt = water(f0)
+    t0 = time.perf_counter()
+    model = ft.LinearSpectralS2(hitu_box(HITU_GRID, 0.12, False), None, 4, c0, rho0, f0, p0,
+                                c0, dtype=torch.float32, device=device)
+    model.dt = dt
+    model._build()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    say(f"[16] S2, HITU lattice: {model.number_of_dofs()} DOF, lattice {model.ops.gdims}, dt "
+        f"{dt:.6e} s, source nodes {int((model.consts['src_vec'] != 0).sum())}, setup "
+        f"{setup:.1f} s")
+    explicit_against_plain(model, "[16] S2")
+    run = timed_rk(model, S2_STEPS, "[16] S2", card)
+    k1 = k1_on_model(model, ("coeff_u",), card, "[16] S2")
+
+    # [16g] checkpoint round trip of the same run
+    half = S2_STEPS // 2
+    model.init()
+    model.rk(0.0, half * dt)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "s2.npz")
+        t_save = time.perf_counter()
+        save_checkpoint(path, model)
+        model.init()
+        t = load_checkpoint(path, model)
+        t_save = time.perf_counter() - t_save
+    u, v, _ = model.rk(t, S2_STEPS * dt)
+    torch.cuda.synchronize()
+    same = torch.equal(u, run["u"]) and torch.equal(v, run["v"])
+    say(f"[16] checkpoint: {half} + {half} steps through save/load (t = {t:.6e} s, save and "
+        f"load {t_save:.2f} s) against {S2_STEPS} steps: equal bits {same}")
+    if not same:
+        raise AssertionError("[16] the checkpointed S2 run differs from the uninterrupted one")
+    return {"solve_s": run["solve_s"], "rate": run["rate"], "launches": run["launches"],
+            "k1": k1, "setup_s": setup}
+
+
+def phase_sponge(device, card) -> dict:
+    """[16b] ``LinearSpectralSponge`` on the HITU box extended to x = 0.15 m,
+    SPONGE_GRID cells, p = 4, fp32, sponge from x = 0.12 m with δ0 =
+    4·2c0/ω0 (the JAX gate's); 3 steps against the plain path, then
+    S2_STEPS timed steps; the nodal δ apply's and K1's ms a stage."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+
+    f0 = 0.5e6
+    c0, rho0, p0, _, _, dt = water(f0)
+    delta0 = 4.0 * 2 * c0 / (2 * np.pi * f0)
+    t0 = time.perf_counter()
+    model = ft.LinearSpectralSponge(hitu_box(SPONGE_GRID, SPONGE_L, True), None, 4, c0, rho0,
+                                    delta0, f0, p0, c0, sponge_start=0.12,
+                                    dtype=torch.float32, device=device)
+    model.dt = dt
+    model._build()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    ops = model.ops
+    say(f"[16] sponge: {model.number_of_dofs()} DOF, lattice {ops.gdims}, delta0 "
+        f"{delta0:.4e}, delta max {float(np.max(model.delta_nodal)):.4e}, setup {setup:.1f} s")
+    explicit_against_plain(model, "[16] sponge")
+    run = timed_rk(model, S2_STEPS, "[16] sponge", card)
+    u, v = run["u"], run["v"]
+    c = model.consts
+    nodal_ms = cuda_median_ms(lambda: ops.stiffness_apply_nodal([v], [c["delta_scales"]]))
+    k1_ms = cuda_median_ms(lambda: ops.stiffness_apply([u], [c["coeff_u"]]))
+    stage_ms = cuda_median_ms(lambda: type(model).rhs_pure(ops, c, 1e-6, u, v))
+    scales = nbytes(list(c["delta_scales"]))
+    bound = floor_ms(nbytes(v) + scales, nbytes(v), 0)
+    say(f"[16] sponge, a stage's slope {stage_ms:.3f} ms: the nodal delta apply "
+        f"{nodal_ms:.3f} ms ({nodal_ms / stage_ms:.3f} of it; byte floor "
+        f"{bound['bound_ms']:.3f} ms, {scales / 2**20:.0f} MiB of scales), K1 {k1_ms:.3f} ms "
+        f"(median of 10, CUDA events; {card})")
+    return {"solve_s": run["solve_s"], "rate": run["rate"], "launches": run["launches"],
+            "nodal_ms": nodal_ms, "k1_ms": k1_ms, "stage_ms": stage_ms, "setup_s": setup}
+
+
+def phase_newmark(device, card) -> dict:
+    """[16c] ``LinearSpectralNewmark`` on bench.py's headline box (104^3
+    cells, p = 4, 72,511,713 DOF), fp64, at bench.py's dt: NEWMARK_STEPS
+    steps through ``newmark`` (K1 the CG matvec); then one step from a
+    seeded random state through K1 and through ``ops.plain()``: the same
+    CG iterations, the fields within 1e-9."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+    from fenicsxfus_tpu_torch.ops.stiffness import stiffness_plain
+
+    nx, degree, c0, rho0, f0, p0, L = HEADLINE_NX, 4, 1500.0, 1000.0, 0.5e6, 60000.0, 0.12
+    t0 = time.perf_counter()
+    mesh = ft.create_box((nx, nx, nx), (0, 0, 0), (L, L, L))
+    ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-9, 2: lambda x: x[0] > L - 1e-9})
+    dt = 0.9 * (L / nx) / (c0 * degree**2)
+    model = ft.LinearSpectralNewmark(mesh, None, degree, c0, rho0, f0, p0, c0, dt,
+                                     device=device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    ndofs = model.number_of_dofs()
+    say(f"[16] Newmark headline nx={nx}: {ndofs} DOF, fp64, dt {dt:.6e} s, cg_rtol "
+        f"{model.cg_rtol:g}, setup {setup:.1f} s")
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    u, _, _, _ = model.newmark(0.0, NEWMARK_STEPS * dt)
+    torch.cuda.synchronize()
+    solve = time.perf_counter() - t0
+    launches = counts()
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    its = model.cg_stats["iterations"]
+    k1 = launches["K1"]
+    say(f"[16] {NEWMARK_STEPS} Newmark steps: {solve:.3f} s, {solve / NEWMARK_STEPS:.4f} s a "
+        f"step; CG iterations a step: worst {max(its)}, mean {np.mean(its):.2f} ({its}); fp64 "
+        f"K1 launches {k1}; device memory peak {peak_gib:.3f} GiB; max|u| "
+        f"{float(u.abs().max()):.6e} ({card})")
+    # per step: the predictor's apply, CG's initial residual, one per iteration
+    if k1 != sum(its) + 2 * NEWMARK_STEPS or not torch.isfinite(u).all():
+        raise AssertionError(f"[16] Newmark: K1 launched {k1} for CG iterations {its}")
+    if any(launches[k] for k in ("K4a", "K4b") + STAGE_KERNELS):
+        raise AssertionError(f"[16] Newmark launched another kernel: {launches}")
+    del u
+    k1_entry = k1_on_model(model, ("coeff_u",), card, "[16] Newmark")
+
+    gen = torch.Generator(device=device).manual_seed(163)
+    u0 = 1e-3 * torch.randn(ndofs, generator=gen, device=device, dtype=torch.float64)
+    v0 = torch.randn(ndofs, generator=gen, device=device, dtype=torch.float64)
+    w0 = torch.zeros_like(v0)
+    plain = model.ops.plain()
+    plain.stiffness_fn = _counting(stiffness_plain)
+    sk, sp = [], []
+    reset_counts()
+    a = model.newmark_step(stats=sk)(model.consts, (u0, v0, w0, 0.0), dt)
+    torch.cuda.synchronize()
+    k1_step = counts()["K1"]
+    b = model.newmark_step(ops=plain, stats=sp)(model.consts, (u0, v0, w0, 0.0), dt)
+    torch.cuda.synchronize()
+    worst = max(rel_err(x, y)[0] for x, y in zip(a[:3], b[:3]))
+    say(f"[16] Newmark, one step from a random state, K1 against the plain stiffness: max rel "
+        f"diff {worst:.3e} (gate 1e-9); CG iterations {sk[0][0]} against {sp[0][0]}, "
+        f"stiffness applies {k1_step} against {plain.stiffness_fn.calls}")
+    if not (worst <= 1e-9 and sk[0][0] == sp[0][0] and k1_step == plain.stiffness_fn.calls):
+        raise AssertionError("[16] Newmark: the K1 step disagrees with the plain step")
+    return {"launches": launches, "solve_s": solve, "setup_s": setup, "peak_gib": peak_gib,
+            "its": its, "k1": k1_entry, "max_rel": worst}
+
+
+def phase_adaptive(device, card) -> dict:
+    """[16d] ``LinearSpectralAdaptive`` and ``WesterveltSpectralAdaptive`` on
+    the HITU lattice (flat aperture), fp64, atol = rtol = 1e-9, over
+    ADAPTIVE_PERIODS source periods: the first 5 attempts through K1 and
+    through ``ops.plain()`` (the same accept/reject sequence, t and the
+    fields within 1e-9), then the whole march, timed: attempts, accepted steps,
+    K1 launches (7 an attempt)."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+
+    f0 = 0.5e6
+    c0, rho0, p0, delta0, beta0, _ = water(f0)
+    tf = ADAPTIVE_PERIODS / f0
+    out = {}
+    for name in ("linear", "westervelt"):
+        t0 = time.perf_counter()
+        mesh = hitu_box(HITU_GRID, 0.12, True)
+        if name == "linear":
+            model = ft.LinearSpectralAdaptive(mesh, None, 4, c0, rho0, f0, p0, c0,
+                                              device=device)
+            keys = ("coeff_u",)
+        else:
+            model = ft.WesterveltSpectralAdaptive(mesh, None, 4, c0, rho0, delta0, beta0, f0,
+                                                  p0, c0, device=device)
+            keys = ("coeff_u", "coeff_v")
+        model.init()
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        tag = f"[16] adaptive {name}"
+        lk, lp = [], []
+        uk, vk, tk, _ = model.adaptive(0.0, tf, max_steps=5, log=lk)
+        up, vp, tp, _ = model.adaptive(0.0, tf, ops=model.ops.plain(), max_steps=5, log=lp)
+        torch.cuda.synchronize()
+        worst = max(rel_err(uk, up)[0], rel_err(vk, vp)[0])
+        say(f"{tag}: {model.number_of_dofs()} DOF, fp64, setup {setup:.1f} s; 5 attempts, K1 "
+            f"against the plain stiffness: accepted {[a for a, _ in lk]} against "
+            f"{[a for a, _ in lp]}, t {tk:.6e} against {tp:.6e}, max rel diff {worst:.3e} "
+            f"(gate 1e-9)")
+        # t and dt follow each attempt's error norm, which the two paths round
+        # apart in its last bits
+        if not ([a for a, _ in lk] == [a for a, _ in lp] and abs(tk - tp) <= 1e-9 * tk
+                and worst <= 1e-9):
+            raise AssertionError(f"{tag}: the K1 attempts disagree with the plain attempts")
+        del uk, vk, up, vp
+        reset_counts()
+        t0 = time.perf_counter()
+        u, v, t, attempts = model.rk(0.0, tf)
+        torch.cuda.synchronize()
+        solve = time.perf_counter() - t0
+        launches = counts()
+        say(f"{tag}: {attempts} attempts, {model.naccepted} accepted, t = {t:.6e} s (tf "
+            f"{tf:.6e}), {solve:.3f} s ({solve / attempts * 1e3:.2f} ms an attempt), fp64 K1 "
+            f"launches {launches['K1']}, max|u| {float(u.abs().max()):.6e} ({card})")
+        if not (launches["K1"] == 7 * attempts and t == tf and torch.isfinite(u).all()
+                and float(u.abs().max()) > 0):
+            raise AssertionError(f"{tag}: the march missed K1 or tf: {launches}")
+        del u, v
+        k1 = k1_on_model(model, keys, card, tag)
+        out[name] = {"launches": launches, "solve_s": solve, "attempts": attempts,
+                     "accepted": model.naccepted, "k1": k1, "setup_s": setup}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_gauss(device, card) -> dict:
+    """[16e] ``LinearExplicit`` (Gauss quadrature, consistent mass, CG at
+    every slope) on ``create_box((GAUSS_NX,)*3)`` over the unit box (the
+    size of ``tools/unstructured_solve.py`` at nx = 54: 10,218,313 DOF),
+    p = 4, fp64, the tool's medium, GAUSS_STEPS RK4 steps: CG iterations a
+    slope, s a step; ``mass_apply`` and ``stiffness_apply`` timed beside
+    their byte floors; the mass of a constant is the volume and its
+    stiffness zero."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+
+    nx, p, c0, rho0, f0 = GAUSS_NX, 4, 1.5, 1.0, 10.0
+    t0 = time.perf_counter()
+    mesh = ft.create_box((nx,) * 3, (0, 0, 0), (1.0, 1.0, 1.0))
+    ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > 1 - 1e-12})
+    dt = 0.4 * (1.0 / nx) / (c0 * p**2)
+    model = ft.LinearExplicit(mesh, None, p, c0, rho0, f0, 1.0, c0, 4, dt, device=device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    q, ops = model.qops, model.ops
+    ndofs, nc = ops.ndofs, ops.num_cells
+    say(f"[16] LinearExplicit: {ndofs} DOF, {nc} cells, nq = {q.nq}, fp64, dt {dt:.6e} s, "
+        f"setup {setup:.1f} s")
+    model.init()
+    model.cg_log.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    u, v, _ = model.rk(0.0, GAUSS_STEPS * dt)
+    torch.cuda.synchronize()
+    solve = time.perf_counter() - t0
+    launches = counts()
+    its = list(model.cg_log)
+    say(f"[16] LinearExplicit {GAUSS_STEPS} RK4 steps: {solve:.3f} s, "
+        f"{solve / GAUSS_STEPS:.3f} s a step; CG iterations a slope {its}; max|u| "
+        f"{float(u.abs().max()):.6e} ({card})")
+    if not (len(its) == 4 * GAUSS_STEPS and max(its) < model.cg_maxiter
+            and torch.isfinite(u).all() and float(u.abs().max()) > 0):
+        raise AssertionError("[16] LinearExplicit: a CG did not converge or the state is bad")
+    if any(launches[k] for k in ("K1", "K4a", "K4b") + STAGE_KERNELS):
+        raise AssertionError(f"[16] LinearExplicit launched a kernel: {launches}")
+    ones = torch.ones(ndofs, dtype=torch.float64, device=device)
+    vol = float(q.mass_apply(ones, model.mass_coeff).sum()) * rho0 * c0 * c0
+    stiff0 = float(q.stiffness_apply([ones], [model.stiff_coeff]).abs().max())
+    say(f"[16] LinearExplicit checks: volume by the consistent mass {vol:.15f} (1), stiffness "
+        f"of a constant {stiff0:.3e}")
+    if not (abs(vol - 1.0) < 1e-12 and stiff0 < 1e-9):
+        raise AssertionError("[16] the Gauss operators fail the constant checks")
+    del u, v, ones
+    gen = torch.Generator(device=device).manual_seed(165)
+    x = torch.randn(ndofs, generator=gen, device=device, dtype=torch.float64)
+    mass_ms = cuda_median_ms(lambda: q.mass_apply(x, model.mass_coeff))
+    stiff_ms = cuda_median_ms(lambda: q.stiffness_apply([x], [model.stiff_coeff]))
+    N, nq = p + 1, q.nq
+    # index maps read once: the gather's int32 dofmap, the fold's int32
+    # table and int64 DOF list
+    idx = 2 * 4 * nc * N**3 + 8 * ndofs
+    # one evaluation at the Gauss lattice (three contractions) and its
+    # transpose, 2 operations a multiply-add
+    contract = 2 * 2 * nc * (nq * N**3 + nq**2 * N**2 + nq**3 * N)
+    mass_floor = floor_ms(8 * ndofs + 8 * nc + nbytes(q.wdetJ) + idx, 8 * ndofs,
+                          contract + nc * nq**3, FP64_FLOP_PER_S)
+    stiff_floor = floor_ms(8 * ndofs + 8 * nc + nbytes(q.G) + idx, 8 * ndofs,
+                           3 * contract + 2 * 9 * nc * nq**3, FP64_FLOP_PER_S)
+    say(f"[16] LinearExplicit at {ndofs} DOF, fp64: mass_apply {mass_ms:.3f} ms, "
+        f"{share_text(mass_floor, mass_ms)}; stiffness_apply {stiff_ms:.3f} ms, "
+        f"{share_text(stiff_floor, stiff_ms)} (median of 10, CUDA events; {card})")
+    return {"solve_s": solve, "its": its, "mass_ms": mass_ms, "stiff_ms": stiff_ms,
+            "setup_s": setup}
+
+
+def phase_family_gates(device) -> dict:
+    """[16f] the CPU tests' gates of these models, on the card in fp64
+    (1D and 2D: torch ops on the device): Newmark 1D < 0.05, adaptive
+    linear < 1e-3, adaptive Westervelt < 1e-1, the S2 window (near > 10
+    far), the sponge's damping (deep < 0.5 inside), the sponge on an
+    unstructured mesh equal to the lattice (1e-10), Gauss LinearExplicit
+    < 1e-3."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+    from fenicsxfus_tpu_torch.analysis.analytical import fubini, planewave
+    from fenicsxfus_tpu_torch.analysis.error import relative_l2_error
+    from fenicsxfus_tpu_torch.core.mesh import Mesh
+    from fenicsxfus_tpu_torch.models.experimental import heaviside_window
+
+    f0, c0, L = 10.0, 1.0, 1.0
+    f64 = dict(dtype=torch.float64, device=device)
+
+    def interval(epw):
+        nx = int(epw * (L * f0 / c0) + 1)
+        mesh = ft.create_interval(nx, 0.0, L)
+        ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > L - 1e-12})
+        return mesh, L / nx
+
+    def l2(model, u, tf, exact):
+        return relative_l2_error(model.ops, u, lambda x: exact(x[0], tf))
+
+    def newmark():
+        mesh, h = interval(4)
+        m = ft.LinearSpectralNewmark(mesh, None, 4, c0, 4.0, f0, 4.0, c0,
+                                     0.25 * h / (c0 * 16), device=device)
+        u, _, _, tf = m.init().newmark(0.0, L / c0 + 16 / f0)
+        return l2(m, u, tf, lambda x, t: planewave(x, t, c0, f0, 4.0)), 0.05
+
+    def adaptive_linear():
+        mesh, _ = interval(4)
+        m = ft.LinearSpectralAdaptive(mesh, None, 4, c0, 4.0, f0, 4.0, c0, device=device)
+        u, _, tf, _ = m.init().rk(0.0, L / c0 + 16 / f0)
+        return l2(m, u, tf, lambda x, t: planewave(x, t, c0, f0, 4.0)), 1e-3
+
+    def adaptive_westervelt():
+        mesh, _ = interval(8)
+        m = ft.WesterveltSpectralAdaptive(mesh, None, 4, c0, 1.0, 0.0, 0.01, f0, 1.0, c0,
+                                          device=device, atol=1e-8, rtol=1e-8)
+        u, _, tf, _ = m.init().rk(0.0, L / c0 + 8 / f0)
+        return l2(m, u, tf, lambda x, t: fubini(x, t, c0, f0, 1.0, 1.0, 0.01)), 1e-1
+
+    def s2_window():
+        mesh = ft.create_rectangle((20, 10), (0, -0.5), (1.0, 0.5))
+        ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > 1 - 1e-12})
+        m = ft.LinearSpectralS2(mesh, None, 3, c0, 1.0, f0, 1.0, c0,
+                                source_profile=heaviside_window(-0.1, 0.1, axis=1), **f64)
+        u, _, _ = m.init().rk4(0.0, 0.2, 0.5 * 0.05 / (c0 * 9))
+        x, un = m.ops.space.dof_coords, u.abs().cpu().numpy()
+        near = un[(np.abs(x[:, 1]) < 0.08) & (x[:, 0] < 0.15)].max()
+        far = un[(np.abs(x[:, 1]) > 0.35) & (x[:, 0] < 0.15)].max()
+        return max(far, 1e-12) / near, 0.1  # near > 10 far
+
+    def sponge_damping():
+        mesh = ft.create_interval(40, 0.0, 0.2)
+        ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > 0.2 - 1e-12})
+        fs, cs = 0.5e6, 1500.0
+        m = ft.LinearSpectralSponge(mesh, None, 4, cs, 1.0, 2 * cs / (2 * np.pi * fs) * 4.0, fs,
+                                    1.0, cs, sponge_start=0.12, **f64)
+        u, _, _ = m.init().rk4(0.0, 0.25 / fs * 200, 0.25 * (0.2 / 40) / (cs * 16))
+        x, un = m.ops.space.dof_coords[:, 0], u.abs().cpu().numpy()
+        return un[x > 0.19].max() / un[x < 0.10].max(), 0.5  # deep < 0.5 inside
+
+    def sponge_unstructured():
+        fs, cs, Lx = 0.5e6, 1500.0, 0.2
+        mesh_s = ft.create_rectangle((20, 5), (0, 0), (Lx, 0.05))
+        perm = np.random.default_rng(3).permutation(mesh_s.num_vertices)
+        v2 = np.empty_like(mesh_s.vertices)
+        v2[perm] = mesh_s.vertices
+        dt = 0.25 * (Lx / 20) / (cs * 16)
+        sols = []
+        for mesh in (mesh_s, Mesh(dim=2, vertices=v2, cells=perm[mesh_s.cells])):
+            ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > Lx - 1e-12})
+            m = ft.LinearSpectralSponge(mesh, None, 4, cs, 1.0, 2 * cs / (2 * np.pi * fs) * 4.0,
+                                        fs, 1.0, cs, sponge_start=0.12, **f64)
+            u, _, _ = m.init().rk4(0.0, 60 * dt, dt)
+            x = m.ops.space.dof_coords
+            sols.append(u.cpu().numpy()[np.lexsort((x[:, 1], x[:, 0]))])
+        return np.abs(sols[1] - sols[0]).max() / np.abs(sols[0]).max(), 1e-10
+
+    def gauss():
+        mesh, h = interval(4)
+        m = ft.LinearExplicit(mesh, None, 4, c0, 4.0, f0, 4.0, c0, 4, 0.9 * h / (c0 * 16),
+                              device=device)
+        u, _, tf = m.init().rk(0.0, L / c0 + 16 / f0)
+        return l2(m, u, tf, lambda x, t: planewave(x, t, c0, f0, 4.0)), 1e-3
+
+    out = {}
+    for name, gate_fn in (("Newmark 1D (4,4)", newmark), ("adaptive linear 1D", adaptive_linear),
+                          ("adaptive Westervelt 1D", adaptive_westervelt),
+                          ("S2 window 2D, far/near", s2_window),
+                          ("sponge 1D, deep/inside", sponge_damping),
+                          ("sponge unstructured against lattice", sponge_unstructured),
+                          ("Gauss LinearExplicit 1D (4,4)", gauss)):
+        t0 = time.perf_counter()
+        value, gate = gate_fn()
+        torch.cuda.synchronize()
+        say(f"[16] gate {name} on the card: {value:.3e} (gate < {gate:g}), "
+            f"{time.perf_counter() - t0:.2f} s")
+        if not value < gate:
+            raise AssertionError(f"[16] gate {name}: {value:.3e} >= {gate:g}")
+        out[name] = value
+    return out
+
+
+def phase_family(device, card) -> dict:
+    """[16]: the rest of the model family on the card: (a) S2 with (g) its
+    checkpoint round trip, (b) the sponge, (c) Newmark, (d) the adaptive
+    models, (e) LinearExplicit, (f) the gates."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    for key, fn in (("s2", phase_s2), ("sponge", phase_sponge), ("newmark", phase_newmark),
+                    ("adaptive", phase_adaptive), ("gauss", phase_gauss)):
+        out[key] = fn(device, card)
+        torch.cuda.empty_cache()
+        say(f"[16] {key} done at {time.perf_counter() - t_phase:.1f} s")
+    out["gates"] = phase_family_gates(device)
+    say(f"[16] done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 
 def main() -> int:
     import torch
@@ -2214,6 +2770,7 @@ def main() -> int:
         f"against {hitu_run['peak_gib']:.3f} GiB ({card})")
     implicit = phase_implicit(device, card, ptxas)
     phase_general(device, card, bowl["bowl"])
+    family = phase_family(device, card)
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
     # from phase [11], K3 from phase [12] (HITU for focused, the headline
@@ -2269,6 +2826,25 @@ def main() -> int:
                 entry("stiffness_apply fp64 two fields (K1), lossy implicit CG", "stiffness.cu",
                       "fenicsxfus_tpu/ops/pallas_v3.py:276",
                       implicit["lossy"]["launches"]["K1"], implicit["k1"][2])]
+    # fp32 K1 in the unfused step of S2 and the sponge ([16a], [16b]; timed
+    # at the HITU lattice), fp64 K1 in the Newmark CG ([16c], the headline)
+    # and in the adaptive attempts ([16d], the HITU lattice)
+    fam = family
+    kernels += [entry("stiffness_apply (K1), S2/sponge unfused step", "stiffness.cu",
+                      "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                      fam["s2"]["launches"]["K1"] + fam["sponge"]["launches"]["K1"],
+                      fam["s2"]["k1"]),
+                entry("stiffness_apply fp64 (K1), Newmark CG", "stiffness.cu",
+                      "fenicsxfus_tpu/ops/pallas_v3.py:276", fam["newmark"]["launches"]["K1"],
+                      fam["newmark"]["k1"]),
+                entry("stiffness_apply fp64 (K1), linear adaptive attempts", "stiffness.cu",
+                      "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                      fam["adaptive"]["linear"]["launches"]["K1"],
+                      fam["adaptive"]["linear"]["k1"]),
+                entry("stiffness_apply fp64 two fields (K1), Westervelt adaptive attempts",
+                      "stiffness.cu", "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                      fam["adaptive"]["westervelt"]["launches"]["K1"],
+                      fam["adaptive"]["westervelt"]["k1"])]
     say(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

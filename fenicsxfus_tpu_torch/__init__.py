@@ -8,9 +8,13 @@ first use (``_build.py``). It imports no jax. The JAX package
 
 Ported so far: the explicit-RK models ``LinearSpectralExplicit``,
 ``LossySpectralExplicit``, ``WesterveltSpectralExplicit`` and
-``WesterveltSpectralFocused`` and the SDIRK models ``LinearSpectralImplicit``
+``WesterveltSpectralFocused``, the SDIRK models ``LinearSpectralImplicit``
 and ``LossySpectralImplicit`` (Jacobi-preconditioned CG, ``ops/cg.py``, K1
-its matvec in 3D) on uniform ``create_interval``, ``create_rectangle`` and
+its matvec in 3D), the rest of the JAX package's model family (Newmark, the
+windowed-source S2, the nodal-δ sponge, adaptive RK45, the Gauss-quadrature
+``LinearExplicit``; ``models/experimental.py``, ``ops/quadrature_ops.py``)
+with the 2D scattering oracles, timers (``analysis/timing.py``) and
+checkpoints (``io/checkpoint.py``, the JAX package's ``.npz``) on uniform ``create_interval``, ``create_rectangle`` and
 ``create_box`` lattices (1D and 2D through the plain ``apply_scaled``, as the
 JAX package has no kernel there), with point sensors, in-loop recording
 (``rk_record``, ``dirk_record``) and ``eval_function``, the HITU focused-bowl driver
@@ -40,8 +44,26 @@ from .core.mesh import (  # noqa: F401
     reorder_locality,
     tag_boundaries,
 )
+from .analysis.analytical import (  # noqa: F401
+    PenetrableExact2D,
+    SoundHardExact2D,
+    SoundSoftExact2D,
+)
+from .models.experimental import (  # noqa: F401
+    LinearSpectralAdaptive,
+    LinearSpectralNewmark,
+    LinearSpectralS2,
+    LinearSpectralSciPy,
+    LinearSpectralSponge,
+    WesterveltSpectralAdaptive,
+    WesterveltSpectralSciPy,
+)
 from .models.focused import WesterveltSpectralFocused, bowl_delays  # noqa: F401
-from .models.linear import LinearSpectralExplicit, LinearSpectralImplicit  # noqa: F401
+from .models.linear import (  # noqa: F401
+    LinearExplicit,
+    LinearSpectralExplicit,
+    LinearSpectralImplicit,
+)
 from .models.lossy import LossySpectralExplicit, LossySpectralImplicit  # noqa: F401
 from .models.westervelt import WesterveltSpectralExplicit  # noqa: F401
 from .ops.operators import SEMOperators  # noqa: F401
@@ -63,6 +85,7 @@ __all__ = [
     "reorder_locality",
     "tag_boundaries",
     "SEMOperators",
+    "LinearExplicit",
     "LinearSpectralExplicit",
     "LinearSpectralImplicit",
     "LossySpectralExplicit",
@@ -70,6 +93,16 @@ __all__ = [
     "WesterveltSpectralExplicit",
     "WesterveltSpectralFocused",
     "bowl_delays",
+    "LinearSpectralNewmark",
+    "LinearSpectralS2",
+    "LinearSpectralSponge",
+    "LinearSpectralAdaptive",
+    "LinearSpectralSciPy",
+    "WesterveltSpectralAdaptive",
+    "WesterveltSpectralSciPy",
+    "SoundHardExact2D",
+    "SoundSoftExact2D",
+    "PenetrableExact2D",
     "compute_diffusivity_of_sound",
     "compute_eval_params",
     "estimate_stable_dt",

@@ -11,7 +11,10 @@ F tensors as above, ``hyb_b`` a tensor, and the slab's correction factors
 component-major [6, nb, N, N, N]. The lattice scales of a 1D or 2D
 coefficient (the JAX package's ``pack_scales``) keep their form: a list, per
 axis, of (scalar, [vectors]) for a constant coefficient, a tuple of per-axis
-scale tensors for a cell-resolved one. The implicit models' vectors (``m``,
+scale tensors for a cell-resolved one, and so do the sponge's nodal scales
+(``delta_scales``, the JAX package's ``pack_scales_nodal``: a tuple of
+per-axis scale tensors; on the general path a raw [ndofs] array, which
+becomes a tensor). The implicit models' vectors (``m``,
 ``kdiag``, ``kdiag_u``/``kdiag_v``, ``src_vec_d``) are plain arrays, and so
 is a stiffness coefficient on the general per-cell path (the JAX
 ``stiff_coeff``'s [Nc] DG-0 array), which becomes a [Nc] tensor as the
@@ -89,7 +92,10 @@ def consts_from_numpy(consts: dict, device="cuda", dtype=torch.float64) -> dict:
 
 def state_from_numpy(u, v, device="cuda", dtype=torch.float64):
     """The JAX model's state (u, v) as flat tensors of the port."""
-    return (
-        _tensor(np.asarray(u).reshape(-1), device, dtype),
-        _tensor(np.asarray(v).reshape(-1), device, dtype),
-    )
+    return field_from_numpy(u, device, dtype), field_from_numpy(v, device, dtype)
+
+
+def field_from_numpy(a, device="cuda", dtype=torch.float64) -> torch.Tensor:
+    """One field of the JAX model's state as a flat tensor of the port
+    (Newmark's acceleration ``w_n`` beside ``state_from_numpy``'s u, v)."""
+    return _tensor(np.asarray(a).reshape(-1), device, dtype)

@@ -260,9 +260,15 @@ class ExplicitModelBase(SpectralModelBase):
         self.step_kind = None  # "fused" or "unfused" once built
         self.stage_cls = None  # the stage class of the last fused step built
 
-    def unfused_step(self):
-        """The reference a-vector RK step over ``rhs_pure`` (K1 per stage)."""
-        ops, rhs_pure = self.ops, type(self).rhs_pure
+    def unfused_step(self, ops=None):
+        """The reference a-vector RK step over ``rhs_pure`` (K1 per stage);
+        ``ops`` replaces the model's operators (``ops.plain()`` runs the
+        plain stiffness). A model with no ``rhs_pure`` (the Gauss-quadrature
+        ``LinearExplicit``) steps over its instance ``rhs(t, u, v)``, its
+        data held by the instance, as in the JAX package."""
+        if not hasattr(type(self), "rhs_pure"):
+            return make_rk_step(lambda consts, t, u, v: self.rhs(t, u, v), self.rk_order)
+        ops, rhs_pure = self.ops if ops is None else ops, type(self).rhs_pure
         return make_rk_step(
             lambda consts, t, u, v: rhs_pure(ops, consts, t, u, v), self.rk_order
         )

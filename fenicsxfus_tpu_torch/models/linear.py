@@ -1,6 +1,6 @@
 """Linear second-order wave equation, explicit RK and SDIRK (port of
-``fenicsxfus_tpu/models/linear.py::LinearSpectralExplicit`` and
-``LinearSpectralImplicit``).
+``fenicsxfus_tpu/models/linear.py``: ``LinearExplicit``,
+``LinearSpectralExplicit`` and ``LinearSpectralImplicit``).
 
 Physics (reference ``python/src/fenicsxfus/_linear.py``):
 
@@ -12,14 +12,63 @@ Neumann source g(t) on facet tag 1 and a first-order Sommerfeld ABC
 the explicit solver never solves a linear system; the implicit SDIRK
 variant solves (M + τ²K + τ·ABC)·kv = b by matrix-free Jacobi-preconditioned
 CG (reference ``:623-647``), its matvec one stiffness apply (K1 on a 3D
-lattice).
+lattice). ``LinearExplicit`` is the Gauss-quadrature variant: a consistent
+mass solved by CG at every slope (``ops/quadrature_ops.py``, torch ops).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.cg import cg_solve
+from ..ops.quadrature_ops import QuadratureOperators
 from .base import ExplicitModelBase, ImplicitModelBase, _cellwise, source_amplitudes
+
+
+class LinearExplicit(ExplicitModelBase):
+    """Explicit-RK linear solver with *Gauss* quadrature (reference
+    ``_linear.py:12-255``): the mass matrix is consistent (not diagonal), so
+    every slope solves M·kv = b, by CG (``ops/cg.py``) on the matrix-free
+    ``QuadratureOperators.mass_apply`` preconditioned by the consistent
+    mass's diagonal (the reference assembles M and solves by LU). Its data
+    are instance attributes (no ``rhs_pure``), so the step is the unfused
+    one over ``rhs``. ``cg_log`` gathers the CG iterations of every slope
+    since the model was built (or since the caller cleared it)."""
+
+    def __init__(self, mesh, meshtags, degree, c0, rho0, freq0, p0, s0,
+                 rk_order, dt, dtype=torch.float64, device="cuda", nq=None,
+                 cg_rtol=1e-10, cg_maxiter=500):
+        super().__init__(mesh, meshtags, degree, freq0, p0, s0, rk_order, dt,
+                         dtype, device)
+        nc = mesh.num_cells
+        c = _cellwise(c0, nc)
+        rho = _cellwise(rho0, nc)
+        ops = self.ops
+        self.qops = QuadratureOperators(ops, nq)
+        self.cg_rtol, self.cg_maxiter = cg_rtol, cg_maxiter
+        self.cg_log: list[int] = []
+        self.consts = self.base_consts()
+        self.mass_coeff = ops.to_device(1.0 / (rho * c * c))
+        self.stiff_coeff = ops.to_device(1.0 / rho)
+        self.mdiag_inv = 1.0 / self.qops.mass_diag(1.0 / (rho * c * c))
+        self.src_vec = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
+        self.abc_diag = ops.to_device(ops.facet_vector(self.ABC_TAG, 1.0 / (rho * c)))
+        self._build()
+
+    def rhs(self, t, u, v):
+        g, _ = source_amplitudes(self.consts, t)
+        b = (
+            -self.qops.stiffness_apply([u], [self.stiff_coeff])
+            + g * self.src_vec
+            - self.abc_diag * v
+        )
+        kv, (it, _) = cg_solve(
+            lambda x: self.qops.mass_apply(x, self.mass_coeff),
+            b, b * self.mdiag_inv, self.mdiag_inv,
+            rtol=self.cg_rtol, maxiter=self.cg_maxiter,
+        )
+        self.cg_log.append(it)
+        return v, kv
 
 
 class LinearSpectralExplicit(ExplicitModelBase):

@@ -11,8 +11,10 @@ GLL weights, geometry and coefficient folded onto the mixed representation
 [.., na·N, ..] (axis-aligned ⇒ no cross-axis terms).
 
 This module holds the host-side (numpy) setup — folded weights, geometry
-factors, the lumped-mass and stiffness diagonals, scale tensors — and
-``apply_scaled``, a d-generic plain torch version of the formula above.
+factors, the lumped-mass and stiffness diagonals, scale tensors of a
+constant, a DG-0 and a nodal coefficient (``scales_nodal``, the sponge's
+δ(x)) — and ``apply_scaled``, a d-generic plain torch version of the
+formula above.
 ``apply_scaled`` is the oracle that the packed K1 form
 (``ops/stiffness.py``) is held against, written from D, w and S
 separately, not from K1 and the packed F tensors; on 1D and 2D lattices,
@@ -128,6 +130,48 @@ class LatticeStiffness:
         for k in range(N):
             out[k::p][:n] += w[k] * tm  # node k of each cell sits at c*p+k
         return np.moveaxis(out, 0, axis)
+
+    def scales_nodal(self, coeff_lattice: np.ndarray) -> tuple:
+        """Full scale tensor per axis (numpy) for a coefficient given at the
+        GLL *nodes* (the sponge layer's δ(x), reference
+        ``_experimental.py:770-780``): evaluated at each (collocated)
+        quadrature point, the coefficient factors out of the cross-axis
+        folds and multiplies the mixed-representation weight pattern
+        pointwise. A tuple of one array per axis, each the lattice shape
+        with axis a replaced by n_a·N (never the rank-1 (scalar, vectors)
+        form of ``scales_const``)."""
+        c = np.asarray(coeff_lattice, np.float64).reshape(self.gdims)
+        out = []
+        for a in range(self.d):
+            t = self._unfold(c, a)  # [.., na*N, ..]
+            wa = np.tile(self._w1, self.grid[a])
+            shape = [1] * self.d
+            shape[a] = self.grid[a] * self.N
+            t = t * wa.reshape(shape)
+            for b in range(self.d):
+                if b == a:
+                    continue
+                shape = [1] * self.d
+                shape[b] = self.gdims[b]
+                t = t * self._wg[b].reshape(shape)
+            out.append(self._geo[a] * t)
+        return tuple(out)
+
+    def _unfold(self, t: np.ndarray, axis: int) -> np.ndarray:
+        """Global lattice → (cell, node) expansion along ``axis`` (the
+        overlapping-window inverse of ``_fold_weighted`` without weights)."""
+        n, p, N = self.grid[axis], self.p, self.N
+        tm = np.moveaxis(t, axis, 0)
+        out = np.zeros((n * N,) + tm.shape[1:])
+        for k in range(N):
+            out[k::N] = tm[k::p][:n]
+        return np.moveaxis(out, 0, axis)
+
+    def mass_diag_nodal(self, coeff_lattice) -> np.ndarray:
+        """Lumped mass with a nodal coefficient: m[g] = coeff[g] · m_unit[g]
+        (collocation ⇒ the nodal value factors out of the cell sum)."""
+        base = self.mass_diag(1.0)
+        return np.asarray(coeff_lattice, np.float64).reshape(-1) * base
 
     def mass_diag(self, coeff_cells) -> np.ndarray:
         """Assembled lumped-mass diagonal on the lattice (host, numpy):

@@ -34,6 +34,13 @@ input gives the same bits); ``stiffness_apply_generic``, the oracle, pins
 the sum-factorised chain and the sorted segment sum (``scatter_segsum``),
 so it shares neither with the default. No TPU kernel is on this path (the
 JAX package runs it in XLA), so it is plain torch ops.
+
+A coefficient given at the GLL nodes (the sponge layer's δ(x)) takes
+``stiffness_apply_nodal``: on a lattice of any d the plain ``apply_scaled``
+over ``pack_scales_nodal``'s scales (K1 takes only constant or DG-0
+coefficients; the JAX package runs this term in XLA too), on the general
+path the per-cell action with the coefficient's cell values at the
+quadrature points (``qcoeff``).
 """
 
 from __future__ import annotations
@@ -320,6 +327,37 @@ class SEMOperators:
             [x[:sx] for x in x3], [c["hyb_b"] for c in cs], cs[0]["hyb_G"])
         return y.reshape(-1)
 
+    def pack_scales_nodal(self, coeff_nodal) -> tuple:
+        """The lattice scales of a nodal (per-DOF) coefficient on the device
+        (the sponge layer's δ(x)): a tuple of the per-axis scale tensors of
+        ``LatticeStiffness.scales_nodal``."""
+        return tuple(self.to_device(t) for t in self.lattice.scales_nodal(np.asarray(coeff_nodal)))
+
+    def stiffness_apply_nodal(self, xs, nodal_coeffs) -> torch.Tensor:
+        """y = Σ_f K_{c_f(x)}(x_f) with coefficients given at the GLL nodes
+        and evaluated at the (collocated) quadrature points: the spatially
+        varying sponge-layer term ∫ δ(x) ∇v·∇φ dx (reference
+        ``_experimental.py:898-918``). On a lattice of any d (the uniform
+        box's lattice on a hybrid one, as in the JAX package)
+        ``LatticeStiffness.apply_scaled`` over the nodal scales (packed by
+        ``pack_scales_nodal``, or packed here from a raw [ndofs] array): K1
+        takes only constant or DG-0 coefficients, and the JAX package runs
+        this term in XLA too. On the general path the coefficient's cell
+        values scale the flux at each quadrature point of
+        ``_stiffness_cells`` (``qcoeff``), then the fold. Flat [ndofs]."""
+        if self.lattice is not None:
+            pairs = []
+            for x, cn in zip(xs, nodal_coeffs):
+                scales = cn if isinstance(cn, (tuple, list)) else self.pack_scales_nodal(cn)
+                pairs.append((x.reshape(self.gdims), scales))
+            return self.lattice.apply_scaled(pairs).reshape(-1)
+        y = None
+        for x, cn in zip(xs, nodal_coeffs):
+            cn = cn if isinstance(cn, torch.Tensor) else self.to_device(cn)
+            yc = self._stiffness_cells(self.gather(x), qcoeff=self.gather(cn))
+            y = yc if y is None else y + yc
+        return self.scatter(y)
+
     def plain(self) -> "SEMOperators":
         """A shallow copy of these operators whose 3D stiffness runs
         ``stiffness_plain`` (no kernel) on any device; everything else is
@@ -482,13 +520,15 @@ class SEMOperators:
             z = term if z is None else z + term
         return z
 
-    def _stiffness_cells(self, z: torch.Tensor) -> torch.Tensor:
+    def _stiffness_cells(self, z: torch.Tensor, qcoeff=None) -> torch.Tensor:
         """Per-cell stiffness action on gathered fields: the dense
         tabulation by default (``stiffness_cells_dense``), the
-        sum-factorised chain with ``FUS_DENSE_TAB=0``."""
+        sum-factorised chain with ``FUS_DENSE_TAB=0``. ``qcoeff`` [Nc, N,
+        ..., N], if given, scales the flux at each quadrature point (the
+        nodal-coefficient apply)."""
         if self._use_dense_tab():
-            return stiffness_cells_dense(self.B_tab, self.G, z, self.d)
-        return stiffness_cells(self.D, self.G, z, self.d)
+            return stiffness_cells_dense(self.B_tab, self.G, z, self.d, qcoeff)
+        return stiffness_cells(self.D, self.G, z, self.d, qcoeff)
 
     def stiffness_apply_generic(self, xs, coeffs) -> torch.Tensor:
         """The oracle of every stiffness path: gather, the sum-factorised
@@ -613,12 +653,14 @@ def tabulate_B(N: int, d: int) -> np.ndarray:
 
 
 def stiffness_cells_dense(B: torch.Tensor, G: torch.Tensor, z: torch.Tensor,
-                          d: int) -> torch.Tensor:
+                          d: int, qcoeff=None) -> torch.Tensor:
     """Per-cell stiffness action through the dense shared gradient
     tabulation: y_c = Bᵀ (G_c ∘ (B z_c)), the reference's dense-tabulation
     rung (``fenicsx-pc``, ``precompute_op.hpp:294-486``). Two matmuls
     [Nc, N^d] @ [N^d, d·N^d] and back, and the symmetric-G transform
-    between them. ``B`` [d, N^d, N^d], ``G`` [nsym, Nc|1, N, ..., N]."""
+    between them. ``B`` [d, N^d, N^d], ``G`` [nsym, Nc|1, N, ..., N];
+    ``qcoeff`` [Nc, N, ..., N], if given, scales each flux component at the
+    quadrature points."""
     nc = z.shape[0]
     nd = B.shape[-1]
     Bf = B.reshape(d * nd, nd)
@@ -630,30 +672,34 @@ def stiffness_cells_dense(B: torch.Tensor, G: torch.Tensor, z: torch.Tensor,
         g = Gf[sym[(0, a)]] * du[:, 0]
         for b in range(1, d):
             g = torch.addcmul(g, Gf[sym[(min(a, b), max(a, b))]], du[:, b])
-        gq[:, a] = g
+        gq[:, a] = g if qcoeff is None else g * qcoeff.reshape(nc, nd)
     return torch.matmul(gq.view(nc, d * nd), Bf).view(z.shape)
 
 
-def stiffness_cells(D: torch.Tensor, G: torch.Tensor, z: torch.Tensor, d: int) -> torch.Tensor:
+def stiffness_cells(D: torch.Tensor, G: torch.Tensor, z: torch.Tensor, d: int,
+                    qcoeff=None) -> torch.Tensor:
     """Sum-factorised per-cell stiffness action (reference
     ``cpp/fenicsx-sf/common/spectral_op.hpp:173-243``): forward
     D-contractions per axis, the symmetric-G quadrature transform,
-    transposed D-contractions. ``G`` [nsym, Nc|1, N, ..., N]."""
+    transposed D-contractions. ``G`` [nsym, Nc|1, N, ..., N]; ``qcoeff``
+    [Nc, N, ..., N], if given, scales each flux component at the
+    quadrature points."""
+    s = (lambda g: g * qcoeff) if qcoeff is not None else (lambda g: g)  # noqa: E731
     if d == 1:
         du = torch.einsum("qi,ci->cq", D, z)
-        return torch.einsum("qi,cq->ci", D, G[0] * du)
+        return torch.einsum("qi,cq->ci", D, s(G[0] * du))
     if d == 2:
         d0 = torch.einsum("qi,cij->cqj", D, z)
         d1 = torch.einsum("qj,cij->ciq", D, z)
-        g0 = G[0] * d0 + G[1] * d1
-        g1 = G[1] * d0 + G[2] * d1
+        g0 = s(G[0] * d0 + G[1] * d1)
+        g1 = s(G[1] * d0 + G[2] * d1)
         return torch.einsum("qi,cqj->cij", D, g0) + torch.einsum("qj,ciq->cij", D, g1)
     d0 = torch.einsum("qi,cijk->cqjk", D, z)
     d1 = torch.einsum("qj,cijk->ciqk", D, z)
     d2 = torch.einsum("qk,cijk->cijq", D, z)
-    g0 = G[0] * d0 + G[1] * d1 + G[2] * d2
-    g1 = G[1] * d0 + G[3] * d1 + G[4] * d2
-    g2 = G[2] * d0 + G[4] * d1 + G[5] * d2
+    g0 = s(G[0] * d0 + G[1] * d1 + G[2] * d2)
+    g1 = s(G[1] * d0 + G[3] * d1 + G[4] * d2)
+    g2 = s(G[2] * d0 + G[4] * d1 + G[5] * d2)
     return (torch.einsum("qi,cqjk->cijk", D, g0)
             + torch.einsum("qj,ciqk->cijk", D, g1)
             + torch.einsum("qk,cijq->cijk", D, g2))
