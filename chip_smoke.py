@@ -100,10 +100,12 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    a random state through K1 against the plain stiffness (the same CG
    counts, 1e-9); ``LossySpectralImplicit`` at the HITU lattice (two-field
    K1, 5 steps) and ``LinearSpectralImplicit`` on a small bowl mesh, each
-   held against the plain path the same way; and the reference gates on
-   the card: 1D linear implicit (4,4) < 0.05, lossy implicit (4,4) < 1e-2,
-   linear explicit (4,4) < 1e-3, the 2D channel (41,6) < 1e-3, and the
-   implicit 3D channel (41,1,1) through K1 < 0.05;
+   held against the plain path the same way; and the reference gates'
+   problems (1D linear and lossy implicit (4,4), linear explicit (4,4),
+   the 2D channel (41,6), the implicit 3D channel (41,1,1) through K1) over
+   the first quarter of each horizon on the card, held against the same
+   run on the CPU (the analytical gates at the full horizon are the CPU
+   tests');
 15. the general per-cell path (no kernel: gather, per-cell products and a
    deterministic fold in torch, fp32 with TF32 off): first
    ``tools/unstructured_solve.py`` at nx = 54, p = 4 (10,218,313 DOF,
@@ -117,9 +119,9 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    apply (1e-5), the fold twice bit for bit, and gather, both cell routes,
    ``K_ref``, both folds and the whole apply timed beside their floors;
    then HITU W-H101-WATER on the bowl mesh with ``FUS_HYBRID=0`` (every
-   step on the general path, no kernel launched), its focal peak held
-   against phase 13's hybrid run (1e-4), and the bowl O'Neil check on the
-   general path;
+   step on the general path, no kernel launched) over the first quarter of
+   the run's time, its peak held against the hybrid path's over the same
+   time (1e-4);
 16. the rest of the model family (no new kernel: K1 is the only one on
    these paths), each through its entry point at full width and held
    against its plain path: ``LinearSpectralS2`` on the HITU lattice (fp32,
@@ -131,11 +133,33 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    stage); ``LinearSpectralNewmark`` on the headline box (fp64, 10 steps,
    K1 the CG matvec, one step against the plain stiffness with the same CG
    counts); ``LinearSpectralAdaptive`` and ``WesterveltSpectralAdaptive``
-   on the HITU lattice (fp64, two source periods, the first 5 attempts
+   on the HITU lattice (fp64, one source period, the first 5 attempts
    against the plain path); ``LinearExplicit`` (Gauss quadrature, fp64) on
    ``create_box((54,)*3)``, 5 RK4 steps, its operators timed beside their
    floors; K1 at each of these shapes against its plain version; and the
-   CPU tests' gates of these models on the card.
+   CPU tests' gates of these models on the card (Newmark, the adaptive
+   models and ``LinearExplicit`` in 1D over the first quarter of each
+   horizon, held against the CPU's run);
+17. this slice's production runs, each through its driver at full width,
+   held against the JAX package's committed run (focal peak within 2% and
+   ±1 sensor, ``drivers.hitu.check_artifact``) and K2 held against its plain
+   version on the run's own operands (``k2_on_model``): (a) the native
+   geometry library (``native/geometry.cpp``) against the ``FUS_NATIVE=0``
+   workers on the H101 bowl mesh at nx = 80 (176,720 cells), timed on the
+   host; (b) the reference-scale W-H131-WATER problem at 1.1 MHz
+   (``hitu.run(..., nx=164, full=True)``: 85,620,897 DOF, p = 4, 7488 RK4
+   steps, K2 ``focused`` 4 a step), 3 more steps fused against unfused, and
+   the harmonics table of its 31 stations (``drivers/harmonics.py``; its
+   gate reported, not asserted); (c) W-H131-WATER, W-H101-LIVER,
+   W-H131-LIVER and V-H131-WATER at ``hitu.run``'s defaults, the H131 orderings
+   on the port's peaks, and the H131 O'Neil check at 0.45 MHz; (d) PH1
+   (``drivers/ph1.py``) at nx = 80: SC1-BM1 (K2 ``linear``, the piston
+   oracle's gates), SC1-BM4 (``lossy`` on a flat DG-0 skull, the 1D
+   transmission gate), SC2-BM6 (``focused`` on a curved DG-0 skull) and
+   SC2-BM7 (p = 5, 22,334,096 DOF), each sensor read at its nearest node
+   as in the committed runs; (e) ``tools/fp32_drift.py``, linear and
+   Westervelt, fp32 beside fp64 to 8000 steps, with the gates of
+   ``tests/test_fp32_drift.py``.
 
 Each phase prints its wall time. Every kernel wrapper counts its launches;
 the counts are set to 0 just before a main path runs and read just after.
@@ -841,7 +865,6 @@ def phase_hitu(device, card, pipe: Pipeline = ONE_KERNEL, tag: str = "[7]",
     import torch
 
     from fenicsxfus_tpu_torch.drivers import hitu
-    from fenicsxfus_tpu_torch.models.common import run_steps
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -860,20 +883,12 @@ def phase_hitu(device, card, pipe: Pipeline = ONE_KERNEL, tag: str = "[7]",
         f"GDOF-RK4-updates/s, device memory peak {peak_gib:.3f} GiB ({card})")
     pipe.check_model(model)
     pipe.check(launches, "focused", res.nsteps, stiffness_launches=0)
-    amp, x = res.amplitude, res.x
+    amp = res.amplitude
     if amp.shape != (161,) or not np.all(np.isfinite(amp)):
         raise AssertionError("HITU axial amplitude is not 161 finite values")
 
-    ref = np.load(ROOT / "benchmarks" / "hitu" / "results" / "w_h101_water.npz")
-    ref_amp, ref_x = ref["amplitude"], ref["x"]
-    i_pk, i_ref = int(np.argmax(amp)), int(np.argmax(ref_amp))
-    rel_peak = (amp[i_pk] - ref_amp[i_ref]) / ref_amp[i_ref]
-    say(f"{tag} focal peak {amp[i_pk]:.6e} Pa at x = {x[i_pk]*1e3:.2f} mm (sensor {i_pk}); "
-        f"JAX package's run {ref_amp[i_ref]:.6e} Pa at {ref_x[i_ref]*1e3:.2f} mm (sensor {i_ref}); "
-        f"relative difference {rel_peak:.6e}, axial profile max rel diff "
-        f"{np.max(np.abs(amp - ref_amp)) / ref_amp[i_ref]:.3e}")
-    if not (abs(rel_peak) < 0.02 and abs(i_pk - i_ref) <= 1):
-        raise AssertionError("HITU focal peak misses the JAX package's run (2%, ±1 sensor)")
+    held(tag, res, HITU_RESULTS / "w_h101_water.npz")  # the JAX package's run
+    i_pk = int(np.argmax(amp))
     if k2_peak is not None:
         rel_k2 = (amp[i_pk] - k2_peak) / k2_peak
         say(f"{tag} focal peak against phase [7]'s one-kernel run {k2_peak:.6e} Pa: relative "
@@ -883,19 +898,7 @@ def phase_hitu(device, card, pipe: Pipeline = ONE_KERNEL, tag: str = "[7]",
 
     # --- 3 more steps from the reached state: the fused step vs the unfused
     # step (its stiffness kernels once per stage)
-    gd = model.ops.gdims
-    u, v, t, dts = model.u_n, model.v_n, model.t, [model.dt] * 3
-    uk, vk, _ = run_steps(model.fused_step(), model.consts, u.view(gd), v.view(gd), t, dts)
-    reset_counts()
-    uu, vu, _ = run_steps(model.unfused_step(), model.consts, u, v, t, dts)
-    torch.cuda.synchronize()
-    unfused = counts()
-    worst = max(rel_err(uk.reshape(-1), uu)[0], rel_err(vk.reshape(-1), vu)[0])
-    say(f"{tag} 3 steps, fused path vs unfused path: max rel diff {worst:.3e} (gate 1e-4); "
-        f"unfused launches {unfused}")
-    if not worst <= 1e-4:
-        raise AssertionError(f"HITU fused path disagrees with the unfused path: {worst:.3e}")
-    pipe.check(unfused, "focused", 0, stiffness_launches=4 * len(dts))
+    fused_against_unfused(model, tag, "focused", pipe)
     return {"launches": launches, "rate": rate, "solve_s": res.solve_s, "setup_s": res.setup_s,
             "peak_gib": peak_gib, "peak_pa": float(amp[i_pk])}
 
@@ -1538,7 +1541,7 @@ def phase_k6(model, card) -> None:
         raise AssertionError(f"K6 disagrees with its fp64 CPU run: {rel:.3e}")
 
 
-def phase_oneil_bowl(device, tag: str = "[13]") -> None:
+def phase_oneil_bowl(device) -> None:
     """The O'Neil check on the bowl-fitted mesh, ``validate_bowl_mesh`` at
     nx = 64 (H101, 0.35 MHz), gated as ``tests/test_hitu.py``'s bowl gates
     and its peak held against the JAX package's chip run."""
@@ -1559,7 +1562,7 @@ def phase_oneil_bowl(device, tag: str = "[13]") -> None:
     meta = json.loads(str(ref["meta"]))
     rel_peak = (got.max() - ref["amplitude"].max()) / ref["amplitude"].max()
     half_lam = hitu.MEDIA["WATER"]["c0"] / 0.35e6 / 2
-    say(f"{tag} O'Neil bowl mesh H101 0.35 MHz nx=64 ({time.perf_counter() - t0:.1f} s): gain "
+    say(f"[13] O'Neil bowl mesh H101 0.35 MHz nx=64 ({time.perf_counter() - t0:.1f} s): gain "
         f"error {gain*100:.3f}%, position error {pos*1e3:.3f} mm, focal L2 {prof*100:.3f}% "
         f"(gates 3%, {half_lam*1e3:.3f} mm, 5%); JAX package's run: {meta['gain_err']*100:.3f}%, "
         f"{meta['pos_err_mm']:.3f} mm, {meta['profile_err']*100:.3f}%; peak "
@@ -1861,14 +1864,50 @@ def phase_implicit_bowl(device) -> None:
     implicit_against_plain(model, "[14] bowl", steps=3)
 
 
+# The launch-bound 1D/2D reference gates ([14e], [16f]) run the first
+# GATE_DEPTH of their horizon on the card and on the CPU, held together; the
+# analytical gates at the full horizon are the CPU tests'
+# (tests/test_torch_implicit.py, tests/test_torch_experimental_gates.py). A
+# depth cut: at the full horizon they took about 220 s of the script's time
+# limit.
+GATE_DEPTH = 0.25
+
+
+def card_against_cpu(tag, name, make, march, tend, gate, device) -> dict:
+    """Build ``make(dev)`` on the card and on the CPU, march each with
+    ``march(model, t)`` (which returns u) from zero to GATE_DEPTH·``tend``,
+    and hold the card's u against the CPU's: max|d|/max|u| <= ``gate``.
+    Returns the difference and the card run's K1 launches and model."""
+    import torch
+
+    t = GATE_DEPTH * tend
+    runs = []
+    for dev in (device, "cpu"):
+        model = make(dev)
+        model.init()
+        reset_counts()
+        t0 = time.perf_counter()
+        u = march(model, t)
+        torch.cuda.synchronize()
+        runs.append((u, time.perf_counter() - t0, counts()["K1"], model))
+    (uk, sk, k1, model), (uc, sc, _, _) = runs
+    rel = rel_err(uk.cpu(), uc)[0]
+    say(f"{tag} {name}, fp64, the first {GATE_DEPTH:g} of its horizon (t = {t:.4g}): card "
+        f"{sk:.2f} s, CPU {sc:.2f} s, max|d|/max|u| = {rel:.3e} (gate {gate:g}), K1 launches "
+        f"{k1}")
+    if not (uk.device == model.device and rel <= gate and float(uc.abs().max()) > 0):
+        raise AssertionError(f"{tag} {name}: the card's run differs from the CPU's: {rel:.3e}")
+    return {"rel": rel, "k1": k1, "model": model}
+
+
 def phase_implicit_gates(device) -> dict:
-    """[14e] the reference gates on the card, fp64 (1D and 2D: plain torch
-    ops on the device; the 3D channel through K1)."""
+    """[14e] the reference gates' problems (1D and 2D: plain torch ops on
+    the device; the 3D channel through K1), fp64, the first GATE_DEPTH of
+    each horizon on the card against the CPU (1e-10 explicit, 1e-7 through
+    the CG's stopping test)."""
     import torch
 
     import fenicsxfus_tpu_torch as ft
-    from fenicsxfus_tpu_torch.analysis.analytical import damped_planewave, planewave
-    from fenicsxfus_tpu_torch.analysis.error import relative_l2_error
 
     f0, c0, L, degree, rho0 = 10.0, 1.0, 1.0, 4, 4.0
     p0 = rho0 * c0
@@ -1876,6 +1915,7 @@ def phase_implicit_gates(device) -> dict:
     h = L / nx
     alphadB = 5.0
     delta0 = ft.compute_diffusivity_of_sound(2 * np.pi * f0, c0, alphadB)
+    f64 = torch.float64
 
     def ends(mesh):
         ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > L - 1e-12})
@@ -1883,55 +1923,39 @@ def phase_implicit_gates(device) -> dict:
 
     cases = {
         "1D linear implicit (4,4)": (
-            lambda: ft.LinearSpectralImplicit(ends(ft.create_interval(nx, 0.0, L)), None,
-                                              degree, c0, rho0, f0, p0, c0, 4,
-                                              0.9 * h / (c0 * degree**2), device=device),
-            lambda x, t: planewave(x[0], t, c0, f0, p0), 0.05),
+            lambda dev: ft.LinearSpectralImplicit(ends(ft.create_interval(nx, 0.0, L)), None,
+                                                  degree, c0, rho0, f0, p0, c0, 4,
+                                                  0.9 * h / (c0 * degree**2), device=dev), 1e-7),
         "1D lossy implicit (4,4)": (
-            lambda: ft.LossySpectralImplicit(ends(ft.create_interval(nx, 0.0, L)), None,
-                                             degree, c0, rho0, delta0, f0, p0, c0, 4,
-                                             0.5 * h / (c0 * degree**2), device=device),
-            lambda x, t: damped_planewave(x[0], t, c0, f0, p0, alphadB / 20 * np.log(10)),
-            1e-2),
+            lambda dev: ft.LossySpectralImplicit(ends(ft.create_interval(nx, 0.0, L)), None,
+                                                 degree, c0, rho0, delta0, f0, p0, c0, 4,
+                                                 0.5 * h / (c0 * degree**2), device=dev), 1e-7),
         "1D linear explicit (4,4)": (
-            lambda: ft.LinearSpectralExplicit(ends(ft.create_interval(nx, 0.0, L)), None,
-                                              degree, c0, rho0, f0, p0, c0, 4,
-                                              0.9 * h / (c0 * degree**2),
-                                              dtype=torch.float64, device=device),
-            lambda x, t: planewave(x[0], t, c0, f0, p0), 1e-3),
+            lambda dev: ft.LinearSpectralExplicit(ends(ft.create_interval(nx, 0.0, L)), None,
+                                                  degree, c0, rho0, f0, p0, c0, 4,
+                                                  0.9 * h / (c0 * degree**2), dtype=f64,
+                                                  device=dev), 1e-10),
         "2D channel explicit (41,6)": (
-            lambda: ft.LinearSpectralExplicit(
+            lambda dev: ft.LinearSpectralExplicit(
                 ends(ft.create_rectangle((41, 6), (0, 0), (L, 0.15))), None, degree, c0,
-                rho0, f0, p0, c0, 4, 0.9 * (L / 41) / (c0 * degree**2),
-                dtype=torch.float64, device=device),
-            lambda x, t: planewave(x[0], t, c0, f0, p0), 1e-3),
+                rho0, f0, p0, c0, 4, 0.9 * (L / 41) / (c0 * degree**2), dtype=f64,
+                device=dev), 1e-10),
         "3D channel implicit (41,1,1) through K1": (
-            lambda: ft.LinearSpectralImplicit(
+            lambda dev: ft.LinearSpectralImplicit(
                 ends(ft.create_box((41, 1, 1), (0, 0, 0), (L, 0.1, 0.1))), None, degree, c0,
-                rho0, f0, p0, c0, 4, 0.9 * (L / 41) / (c0 * degree**2), device=device),
-            lambda x, t: planewave(x[0], t, c0, f0, p0), 0.05),
+                rho0, f0, p0, c0, 4, 0.9 * (L / 41) / (c0 * degree**2), device=dev), 1e-7),
     }
+
+    def march(model, t):
+        return model.dirk(0.0, t)[0] if hasattr(model, "dirk") else model.rk(0.0, t)[0]
+
     out = {}
-    for name, (make, exact, gate) in cases.items():
-        model = make()
-        model.init()
-        reset_counts()
-        t0 = time.perf_counter()
-        tend = L / c0 + 16.0 / f0
-        u, _, tf = model.dirk(0.0, tend) if hasattr(model, "dirk") else model.rk(0.0, tend)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        k1 = counts()["K1"]
-        err = relative_l2_error(model.ops, u, lambda x: exact(x, tf))
-        stats = f", worst CG iterations {model.cg_stats['max_iterations']}" if hasattr(
-            model, "dirk") else ""
-        say(f"[14] {name} fp64 on the card: {seconds:.2f} s, rel-L2 = {err:.3e} (gate "
-            f"{gate:g}){stats}, K1 launches {k1}")
-        if not (u.device == model.device == torch.device(device) and err < gate):
-            raise AssertionError(f"{name}: rel-L2 {err:.3e} >= {gate:g}")
-        if (model.ops.d == 3) != (k1 > 0):
-            raise AssertionError(f"{name}: K1 launched {k1} times on a {model.ops.d}D lattice")
-        out[name] = err
+    for name, (make, gate) in cases.items():
+        res = card_against_cpu("[14]", name, make, march, L / c0 + 16.0 / f0, gate, device)
+        if (res["model"].ops.d == 3) != (res["k1"] > 0):
+            raise AssertionError(f"{name}: K1 launched {res['k1']} times on a "
+                                 f"{res['model'].ops.d}D lattice")
+        out[name] = res["rel"]
     return out
 
 
@@ -2126,21 +2150,32 @@ def phase_general_ops(device, card, ops32, ops64) -> dict:
     return times
 
 
+# [15](c) runs the first quarter of the bowl run's time on the general path
+# and on the hybrid path (the whole run and the bowl O'Neil check on the
+# general path took 130-140 s of the script's time limit)
+BOWL_GENERAL_DEPTH = 0.25
+
+
 def phase_general_bowl(device, card, hybrid: dict) -> dict:
     """[15](c): HITU W-H101-WATER on the bowl mesh with ``FUS_HYBRID=0``
-    (the general per-cell path, no kernel), the whole run, its focal peak
-    held against phase [13]'s hybrid run (1e-4 relative, the same sensor);
-    then the bowl O'Neil check on the general path."""
+    (the general per-cell path, no kernel) over the first
+    BOWL_GENERAL_DEPTH of ``hitu.run``'s final time, its axial amplitude held
+    against the hybrid path's (K2 + band) over the same time: the peak
+    within 1e-4 at the same sensor, in as many steps."""
     import torch
 
     from fenicsxfus_tpu_torch.drivers import hitu
 
     assert_no_tf32()
+    tf = BOWL_GENERAL_DEPTH * (hitu.TRANSDUCERS["H101"]["L"] / hitu.MEDIA["WATER"]["c0"]
+                               + 8.0 / 0.5e6)
+    twin = hitu.run("W", "H101", "WATER", bowl=True, final_time=tf, device=device)
+    ref = twin.amplitude
     with environment({"FUS_HYBRID": "0"}):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         reset_counts()
-        res = hitu.run("W", "H101", "WATER", bowl=True, device=device)
+        res = hitu.run("W", "H101", "WATER", bowl=True, final_time=tf, device=device)
         torch.cuda.synchronize()
         launches = counts()
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
@@ -2150,29 +2185,29 @@ def phase_general_bowl(device, card, hybrid: dict) -> dict:
         if any(launches[k] for k in ("K1", "K4a", "K4b")) or any(
                 launches[k] for k in STAGE_KERNELS):
             raise AssertionError(f"[15] a kernel ran on the general path: {launches}")
-        amp, ref = res.amplitude, hybrid["amplitude"]
+        amp = res.amplitude
         if amp.shape != ref.shape or not np.all(np.isfinite(amp)):
             raise AssertionError("[15] bowl axial amplitude is not 161 finite values")
         i_pk, i_ref = int(np.argmax(amp)), int(np.argmax(ref))
         rel_peak = (amp[i_pk] - ref[i_ref]) / ref[i_ref]
         ndofs = model.number_of_dofs()
-        say(f"[15] HITU W-H101-WATER bowl mesh, FUS_HYBRID=0: {ndofs} DOF, {model.ops.num_cells} "
-            f"cells, dt {model.dt:.6e} s ([13]: {hybrid['dt']:.6e}), {res.nsteps} RK4 steps "
-            f"([13]: {hybrid['nsteps']}), {model.step_kind} step, no kernel launched")
+        say(f"[15] HITU W-H101-WATER bowl mesh, FUS_HYBRID=0, the first {BOWL_GENERAL_DEPTH:g} "
+            f"of the run ({tf:.4e} s): {ndofs} DOF, {model.ops.num_cells} cells, dt "
+            f"{model.dt:.6e} s ([13]: {hybrid['dt']:.6e}), {res.nsteps} RK4 steps (hybrid "
+            f"path: {twin.nsteps}), {model.step_kind} step, no kernel launched")
         say(f"[15] setup {res.setup_s:.2f} s (host s: "
             + ", ".join(f"{k} {v:.2f}" for k, v in res.setup_split.items())
             + f"), solve {res.solve_s:.3f} s ({ndofs * res.nsteps / res.solve_s / 1e9:.4f} "
-            f"GDOF-RK4-updates/s; [13] hybrid {hybrid['solve_s']:.3f} s), device memory peak "
+            f"GDOF-RK4-updates/s; the hybrid path {twin.solve_s:.3f} s), device memory peak "
             f"{peak_gib:.3f} GiB ({card})")
-        say(f"[15] focal peak {amp[i_pk]:.6e} Pa (sensor {i_pk}) against [13]'s hybrid run "
-            f"{ref[i_ref]:.6e} Pa (sensor {i_ref}): relative difference {rel_peak:.3e} (gate 1e-4); "
-            f"axial profile max rel diff {np.max(np.abs(amp - ref)) / ref[i_ref]:.3e}")
-        if not (abs(rel_peak) <= 1e-4 and i_pk == i_ref and res.nsteps == hybrid["nsteps"]):
+        say(f"[15] peak {amp[i_pk]:.6e} Pa (sensor {i_pk}) against the hybrid path's "
+            f"{ref[i_ref]:.6e} Pa (sensor {i_ref}): relative difference {rel_peak:.3e} (gate "
+            f"1e-4); axial profile max rel diff {np.max(np.abs(amp - ref)) / ref[i_ref]:.3e}")
+        if not (abs(rel_peak) <= 1e-4 and i_pk == i_ref and res.nsteps == twin.nsteps):
             raise AssertionError("[15] the general bowl run misses the hybrid run's peak")
         out = {"solve_s": res.solve_s, "setup_s": res.setup_s, "peak_gib": peak_gib,
                "rel_peak": float(rel_peak)}
         del model, res
-        phase_oneil_bowl(device, "[15] FUS_HYBRID=0:")
     return out
 
 
@@ -2195,7 +2230,9 @@ S2_STEPS = 200
 SPONGE_GRID = (100, 47, 47)  # the HITU box extended to x = 0.15 m: (401, 189, 189) nodes
 SPONGE_L = 0.15
 NEWMARK_STEPS = 10
-ADAPTIVE_PERIODS = 2
+# one source period (two before): a depth cut that keeps the script
+# inside its time limit as [17] grows it
+ADAPTIVE_PERIODS = 1
 GAUSS_NX = 54  # create_box((54,)*3) over the unit box, p = 4: 10,218,313 DOF
 GAUSS_STEPS = 5
 
@@ -2604,16 +2641,15 @@ def phase_gauss(device, card) -> dict:
 
 def phase_family_gates(device) -> dict:
     """[16f] the CPU tests' gates of these models, on the card in fp64
-    (1D and 2D: torch ops on the device): Newmark 1D < 0.05, adaptive
-    linear < 1e-3, adaptive Westervelt < 1e-1, the S2 window (near > 10
+    (1D and 2D: torch ops on the device): the problems of Newmark 1D,
+    adaptive linear and Westervelt and Gauss LinearExplicit over the first
+    GATE_DEPTH of each horizon, the card against the CPU (1e-7 through a
+    CG, 1e-6 through the step-size control); the S2 window (near > 10
     far), the sponge's damping (deep < 0.5 inside), the sponge on an
-    unstructured mesh equal to the lattice (1e-10), Gauss LinearExplicit
-    < 1e-3."""
+    unstructured mesh equal to the lattice (1e-10)."""
     import torch
 
     import fenicsxfus_tpu_torch as ft
-    from fenicsxfus_tpu_torch.analysis.analytical import fubini, planewave
-    from fenicsxfus_tpu_torch.analysis.error import relative_l2_error
     from fenicsxfus_tpu_torch.core.mesh import Mesh
     from fenicsxfus_tpu_torch.models.experimental import heaviside_window
 
@@ -2626,28 +2662,26 @@ def phase_family_gates(device) -> dict:
         ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12, 2: lambda x: x[0] > L - 1e-12})
         return mesh, L / nx
 
-    def l2(model, u, tf, exact):
-        return relative_l2_error(model.ops, u, lambda x: exact(x[0], tf))
-
-    def newmark():
-        mesh, h = interval(4)
-        m = ft.LinearSpectralNewmark(mesh, None, 4, c0, 4.0, f0, 4.0, c0,
-                                     0.25 * h / (c0 * 16), device=device)
-        u, _, _, tf = m.init().newmark(0.0, L / c0 + 16 / f0)
-        return l2(m, u, tf, lambda x, t: planewave(x, t, c0, f0, 4.0)), 0.05
-
-    def adaptive_linear():
-        mesh, _ = interval(4)
-        m = ft.LinearSpectralAdaptive(mesh, None, 4, c0, 4.0, f0, 4.0, c0, device=device)
-        u, _, tf, _ = m.init().rk(0.0, L / c0 + 16 / f0)
-        return l2(m, u, tf, lambda x, t: planewave(x, t, c0, f0, 4.0)), 1e-3
-
-    def adaptive_westervelt():
-        mesh, _ = interval(8)
-        m = ft.WesterveltSpectralAdaptive(mesh, None, 4, c0, 1.0, 0.0, 0.01, f0, 1.0, c0,
-                                          device=device, atol=1e-8, rtol=1e-8)
-        u, _, tf, _ = m.init().rk(0.0, L / c0 + 8 / f0)
-        return l2(m, u, tf, lambda x, t: fubini(x, t, c0, f0, 1.0, 1.0, 0.01)), 1e-1
+    h4 = interval(4)[1]
+    depth_cases = {  # name: (model on a device, march to t -> u, horizon, gate)
+        "Newmark 1D (4,4)": (
+            lambda dev: ft.LinearSpectralNewmark(interval(4)[0], None, 4, c0, 4.0, f0, 4.0, c0,
+                                                 0.25 * h4 / (c0 * 16), device=dev),
+            lambda m, t: m.newmark(0.0, t)[0], L / c0 + 16 / f0, 1e-7),
+        "adaptive linear 1D": (
+            lambda dev: ft.LinearSpectralAdaptive(interval(4)[0], None, 4, c0, 4.0, f0, 4.0, c0,
+                                                  device=dev),
+            lambda m, t: m.rk(0.0, t)[0], L / c0 + 16 / f0, 1e-6),
+        "adaptive Westervelt 1D": (
+            lambda dev: ft.WesterveltSpectralAdaptive(interval(8)[0], None, 4, c0, 1.0, 0.0,
+                                                      0.01, f0, 1.0, c0, device=dev,
+                                                      atol=1e-8, rtol=1e-8),
+            lambda m, t: m.rk(0.0, t)[0], L / c0 + 8 / f0, 1e-6),
+        "Gauss LinearExplicit 1D (4,4)": (
+            lambda dev: ft.LinearExplicit(interval(4)[0], None, 4, c0, 4.0, f0, 4.0, c0, 4,
+                                          0.9 * h4 / (c0 * 16), device=dev),
+            lambda m, t: m.rk(0.0, t)[0], L / c0 + 16 / f0, 1e-7),
+    }
 
     def s2_window():
         mesh = ft.create_rectangle((20, 10), (0, -0.5), (1.0, 0.5))
@@ -2687,20 +2721,11 @@ def phase_family_gates(device) -> dict:
             sols.append(u.cpu().numpy()[np.lexsort((x[:, 1], x[:, 0]))])
         return np.abs(sols[1] - sols[0]).max() / np.abs(sols[0]).max(), 1e-10
 
-    def gauss():
-        mesh, h = interval(4)
-        m = ft.LinearExplicit(mesh, None, 4, c0, 4.0, f0, 4.0, c0, 4, 0.9 * h / (c0 * 16),
-                              device=device)
-        u, _, tf = m.init().rk(0.0, L / c0 + 16 / f0)
-        return l2(m, u, tf, lambda x, t: planewave(x, t, c0, f0, 4.0)), 1e-3
-
-    out = {}
-    for name, gate_fn in (("Newmark 1D (4,4)", newmark), ("adaptive linear 1D", adaptive_linear),
-                          ("adaptive Westervelt 1D", adaptive_westervelt),
-                          ("S2 window 2D, far/near", s2_window),
+    out = {name: card_against_cpu("[16]", name, make, march, tend, gate, device)["rel"]
+           for name, (make, march, tend, gate) in depth_cases.items()}
+    for name, gate_fn in (("S2 window 2D, far/near", s2_window),
                           ("sponge 1D, deep/inside", sponge_damping),
-                          ("sponge unstructured against lattice", sponge_unstructured),
-                          ("Gauss LinearExplicit 1D (4,4)", gauss)):
+                          ("sponge unstructured against lattice", sponge_unstructured)):
         t0 = time.perf_counter()
         value, gate = gate_fn()
         torch.cuda.synchronize()
@@ -2729,6 +2754,325 @@ def phase_family(device, card) -> dict:
     say(f"[16] done in {time.perf_counter() - t_phase:.1f} s")
     return out
 
+
+
+# ---------------- [17] native geometry, the reference-scale HITU runs, PH1, fp32 drift
+
+HITU_RESULTS = ROOT / "benchmarks" / "hitu" / "results"
+PH1_RESULTS = ROOT / "benchmarks" / "ph1" / "results"
+# W-H131-WATER at 1.1 MHz (W-H131-WATER/main.cpp): nx = 164 at p = 4,
+# (657, 361, 361) nodes, 7488 RK4 steps
+FULL_NX, FULL_DOF, FULL_STEPS = 164, 85_620_897, 7488
+# the HITU variants besides W-H101-WATER ([7]), at ``hitu.run``'s defaults
+VARIANTS = (("W", "H131", "WATER"), ("W", "H101", "LIVER"), ("W", "H131", "LIVER"),
+            ("V", "H131", "WATER"))
+# one PH1 case a K2 route: linear with the facet source, lossy on a flat
+# DG-0 skull, focused on a curved DG-0 skull, and p = 5 (the general tile)
+PH1_CASES = {(1, 1): "linear", (1, 4): "lossy", (2, 6): "focused", (2, 7): "focused"}
+
+
+def k2_on_model(model, card, tag) -> dict:
+    """K2 against its plain version on ``model``'s own operands: one RK4
+    step from its state through ``model.fused_step(stage_fn=probe)``, where
+    ``probe`` runs ``stage_apply`` and ``stage_plain`` on each stage's
+    operands (the model's lattice, packed coefficients, dense and facet
+    vectors, and the stage fields), holds them together (TOL) and times the
+    first non-final stage and the final one beside their bounds. Returns
+    those two stages' numbers by "non-final" and "final"."""
+    import torch
+
+    from fenicsxfus_tpu_torch.models.common import run_steps
+    from fenicsxfus_tpu_torch.ops.stage import stage_apply, stage_plain
+
+    out = {}
+
+    def probe(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final):
+        args = dict(kind=kind, u0=u0, v0=v0, kvp=kvp, kvpp=kvpp, prev=prev, Fs=Fs, dense=dense,
+                    facets=facets, scal=scal, p=p, final=final)
+        got, ref = stage_apply(**args), stage_plain(**args)
+        torch.cuda.synchronize()
+        worst = max(rel_err(a, b) for a, b in (zip(got, ref) if final else [(got, ref)]))
+        stage = "final" if final else "non-final"
+        coeff = "DG-0" if any(F["F0"].shape[0] > 1 for F in Fs) else "const"
+        if not worst[0] <= TOL:
+            raise AssertionError(f"{tag} K2 {kind} {stage} disagrees with its plain version: "
+                                 f"{worst[0]:.3e} > {TOL}")
+        if stage not in out:
+            del ref
+            ms = cuda_median_ms(lambda: stage_apply(**args))
+            pms = cuda_median_ms(lambda: stage_plain(**args))
+            bound = stage_floor(args, "K2")
+            say(f"{tag} K2 {kind} p={p} at {tuple(u0.shape)}, the model's {coeff} operands, "
+                f"{stage}: max|d|/max|ref| = {worst[0]:.3e}; kernel {ms:.3f} ms, plain "
+                f"{pms:.3f} ms, {share_text(bound, ms)} (median of 10, CUDA events; {card}); "
+                f"tile plan {plan_line(tuple(u0.shape), p, len(Fs), len(Fs) + 2)}")
+            out[stage] = {"max_abs_err": worst[1], "rel_err": worst[0], "ms": ms,
+                          "plain_ms": pms, "coeff": coeff, "gdims": tuple(u0.shape), **bound}
+        return got
+
+    gd = model.ops.gdims
+    run_steps(model.fused_step(stage_fn=probe), model.consts, model.u_n.view(gd),
+              model.v_n.view(gd), model.t, [model.dt])
+    torch.cuda.synchronize()
+    return out
+
+
+def fused_against_unfused(model, tag: str, kind: str, pipe: Pipeline = ONE_KERNEL) -> float:
+    """3 steps from the model's state through the fused step and through
+    the unfused step (its stiffness through ``pipe``'s stiffness kernels
+    once a stage): max rel diff <= 1e-4."""
+    import torch
+
+    from fenicsxfus_tpu_torch.models.common import run_steps
+
+    gd = model.ops.gdims
+    u, v, t, dts = model.u_n, model.v_n, model.t, [model.dt] * 3
+    uk, vk, _ = run_steps(model.fused_step(), model.consts, u.view(gd), v.view(gd), t, dts)
+    reset_counts()
+    uu, vu, _ = run_steps(model.unfused_step(), model.consts, u.reshape(-1), v.reshape(-1), t,
+                          dts)
+    torch.cuda.synchronize()
+    unfused = counts()
+    worst = max(rel_err(uk.reshape(-1), uu)[0], rel_err(vk.reshape(-1), vu)[0])
+    say(f"{tag} 3 steps, fused path vs unfused path: max rel diff {worst:.3e} (gate 1e-4); "
+        f"unfused launches {unfused}")
+    if not worst <= 1e-4:
+        raise AssertionError(f"{tag} fused path disagrees with the unfused path: {worst:.3e}")
+    pipe.check(unfused, kind, 0, stiffness_launches=4 * len(dts))
+    return worst
+
+
+def driven(tag: str, card, device, kind: str, fn):
+    """Run ``fn()`` (a driver's run) as a main path: memory peak and counts
+    from 0 just before, read just after; K2 ``kind`` 4 times a step and no
+    other kernel. Prints setup s, solve s, the rate, the memory peak and
+    the launches; returns (the run, a summary)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    launches = counts()
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    ndofs = res.model.number_of_dofs()
+    rate = ndofs * res.nsteps / res.solve_s / 1e9
+    say(f"{tag} {ndofs} DOF, p={res.model.degree}, {res.nsteps} RK4 steps, setup "
+        f"{res.setup_s:.2f} s, solve {res.solve_s:.3f} s, {rate:.4f} GDOF-RK4-updates/s, device "
+        f"memory peak {peak_gib:.3f} GiB, K2 launches {launches['K2']} ({card})")
+    ONE_KERNEL.check_model(res.model)
+    ONE_KERNEL.check(launches, kind, res.nsteps, stiffness_launches=0)
+    if not np.all(np.isfinite(res.amplitude)):
+        raise AssertionError(f"{tag} the axial amplitude is not finite")
+    return res, {"ndofs": ndofs, "degree": res.model.degree, "nsteps": res.nsteps,
+                 "setup_s": res.setup_s,
+                 "solve_s": res.solve_s, "rate": rate, "peak_gib": peak_gib,
+                 "launches": launches["K2"].get(kind, 0), "peak_pa": float(np.max(res.amplitude)),
+                 "x_pk": float(res.x[int(np.argmax(res.amplitude))])}
+
+
+def held(tag: str, res, npz: Path) -> dict:
+    """``hitu.check_artifact`` of a run against a committed run; raises on
+    a miss (2%, ±1 sensor)."""
+    from fenicsxfus_tpu_torch.drivers.hitu import check_artifact
+
+    print(tag, end="")
+    chk = check_artifact(res, npz)
+    if not chk["ok"]:
+        raise AssertionError(f"{tag} focal peak misses {npz.name} (2%, ±1 sensor): {chk}")
+    return chk
+
+
+def phase_native(card) -> dict:
+    """[17a] the native geometry library against the numpy workers
+    (``FUS_NATIVE=0``) on the H101 bowl mesh at nx = 80, p = 4."""
+    from fenicsxfus_tpu_torch import native
+    from fenicsxfus_tpu_torch.core.geometry import quadrature_factors
+    from fenicsxfus_tpu_torch.core.gll import gll_points_weights_01
+    from fenicsxfus_tpu_torch.drivers import hitu
+
+    t0 = time.perf_counter()
+    path = native.build()
+    native.library()
+    t_build = time.perf_counter() - t0
+    mesh, _ = hitu.bowl_mesh("H101", 80)
+    x1, w1 = gll_points_weights_01(5)
+    t0 = time.perf_counter()
+    nat = quadrature_factors(mesh, x1, w1)
+    t_native = time.perf_counter() - t0
+    with environment({"FUS_NATIVE": "0"}):
+        t0 = time.perf_counter()
+        ref = quadrature_factors(mesh, x1, w1)
+        t_workers = time.perf_counter() - t0
+    rel = max(float(np.max(np.abs(a - b)) / np.max(np.abs(b))) for a, b in zip(nat, ref))
+    say(f"[17a] native geometry ({path.name}, built or found in {t_build:.2f} s): "
+        f"quadrature_factors of the H101 bowl mesh, {mesh.num_cells} cells x {nat[0].shape[1]} "
+        f"points: native {t_native:.3f} s, FUS_NATIVE=0 workers {t_workers:.3f} s (host "
+        f"clock, {os.cpu_count()} cores); max|d|/max|ref| = {rel:.3e} (gate 1e-12)")
+    if mesh.num_cells != 176_720 or not rel <= 1e-12:
+        raise AssertionError(f"[17a] native factors disagree with the workers: {rel:.3e}")
+    return {"native_s": t_native, "workers_s": t_workers, "rel": rel}
+
+
+def phase_full(device, card) -> dict:
+    """[17b] W-H131-WATER at 1.1 MHz, the reference-scale problem, through
+    ``drivers.hitu.run(..., nx=164, full=True)``; held against the JAX
+    package's run, 3 steps fused against unfused, its harmonics, and K2 at
+    this lattice against its plain version."""
+    import tempfile
+
+    from fenicsxfus_tpu_torch.drivers import harmonics, hitu
+
+    with tempfile.TemporaryDirectory() as tmp:  # the run's waveforms, read back
+        out = os.path.join(tmp, "w_h131_water_full11MHz.npz")
+        res, run = driven("[17b] HITU W-H131-WATER 1.1 MHz:", card, device, "focused",
+                          lambda: hitu.run("W", "H131", "WATER", nx=FULL_NX, full=True, out=out,
+                                           device=device))
+        say("[17b] harmonics of the 31 stations (drivers/harmonics.py; the gate is reported, "
+            "not asserted: the committed gate is a p = 5 run)")
+        gate = harmonics.analyze(out)["gate"]
+    say(f"[17b] harmonics gate at p = 4: {gate}")
+    if (run["ndofs"], run["nsteps"]) != (FULL_DOF, FULL_STEPS):
+        raise AssertionError(f"[17b] not the reference-scale problem: {run}")
+    run["check"] = held("[17b]", res, HITU_RESULTS / "w_h131_water_full11MHz.npz")
+    run["unfused"] = fused_against_unfused(res.model, "[17b]", "focused")
+    run["k2"] = k2_on_model(res.model, card, "[17b]")
+    del res
+    return run
+
+
+def phase_variants(device, card) -> dict:
+    """[17c] the four other HITU variants at ``hitu.run``'s defaults, each held
+    against its committed run; the orderings of
+    ``tests/test_hitu.py::test_h131_production_artifacts`` on the port's
+    own peaks; the H131 O'Neil check at 0.45 MHz."""
+    from fenicsxfus_tpu_torch.drivers import hitu
+
+    out = {}
+    for kind, tx, medium in VARIANTS:
+        name = f"{kind}-{tx}-{medium}"
+        res, run = driven(f"[17c] HITU {name}:", card, device, "focused",
+                          lambda: hitu.run(kind, tx, medium, device=device))
+        run["check"] = held(f"[17c] {name}", res,
+                            HITU_RESULTS / f"{kind.lower()}_{tx.lower()}_{medium.lower()}.npz")
+        out[name] = run
+        del res
+    peaks = {k: (v["peak_pa"], v["x_pk"]) for k, v in out.items()}
+    for name in ("W-H131-WATER", "W-H131-LIVER", "V-H131-WATER"):
+        pk, xpk = peaks[name]
+        if not (0.015 < xpk < 0.045 and 1e6 < pk < 3e7):
+            raise AssertionError(f"[17c] {name}: peak {pk:.4e} Pa at {xpk} m")
+    if not (peaks["W-H131-WATER"][0] > peaks["V-H131-WATER"][0]
+            and peaks["W-H131-WATER"][0] > peaks["W-H131-LIVER"][0]):
+        raise AssertionError(f"[17c] the H131 orderings fail: {peaks}")
+    say("[17c] H131 orderings hold: W-water > V-water and W-water > W-liver, each peak in "
+        "15-45 mm and 1-30 MPa")
+    t0 = time.perf_counter()
+    gain, pos, prof = hitu.validate_oneil("H131", f0=0.45e6, nx=64, device=device)
+    ref = json.loads(str(np.load(HITU_RESULTS / "oneil_h131_0.45mhz.npz")["meta"]))
+    say(f"[17c] O'Neil H131 0.45 MHz nx=64 ({time.perf_counter() - t0:.1f} s): gain error "
+        f"{gain*100:.3f}%, position error {pos*1e3:.3f} mm, focal L2 {prof*100:.3f}%; JAX "
+        f"package's run: {ref['gain_err']*100:.3f}%, {ref['pos_err_mm']:.3f} mm, "
+        f"{ref['profile_err']*100:.3f}% (gates 8%, 2.25 mm, 10%)")
+    if not (gain < 0.08 and pos <= 2.25e-3 + 1e-12 and prof < 0.10):
+        raise AssertionError("[17c] H131 O'Neil gate failed")
+    return out
+
+
+def phase_ph1(device, card) -> dict:
+    """[17d] PH1 at nx = 80: SC1-BM1 (the piston oracle's gates of
+    ``tests/test_ph1.py``), SC1-BM4 (the 1D transmission gate), SC2-BM6,
+    SC2-BM7 (p = 5); each peak held against its committed run, and K2 at
+    each case's lattice and coefficients against its plain version. The
+    committed runs read each sensor at its nearest node (they predate the
+    JAX package's interpolation of off-node sensors), so these runs do too
+    (``ph1.run(..., snap=True)``)."""
+    from fenicsxfus_tpu_torch.analysis.analytical import piston_axial_amplitude
+    from fenicsxfus_tpu_torch.drivers import ph1
+
+    out, profiles = {}, {}
+    for (sc, bm), kind in PH1_CASES.items():
+        tag = f"[17d] PH1 SC{sc}-BM{bm}:"
+        # each sensor at its nearest node: the committed runs' sampling
+        res, run = driven(tag, card, device, kind,
+                          lambda: ph1.run(sc, bm, device=device, snap=True))
+        run["check"] = held(tag, res, PH1_RESULTS / f"sc{sc}_bm{bm}.npz")
+        x, amp = res.x, res.amplitude
+        profiles[(sc, bm)] = (x, amp)
+        if (sc, bm) == (1, 1):
+            c0 = 1500.0
+            lam, k = c0 / ph1.F0, 2 * np.pi * ph1.F0 / c0
+            i_pk = int(np.argmax(amp))
+            z_last = ph1.SC1_RADIUS**2 / lam
+            gain = abs(amp[i_pk] - 2 * ph1.P0) / (2 * ph1.P0)
+            far = x > 0.08
+            ref = piston_axial_amplitude(x, ph1.SC1_RADIUS, k, ph1.P0)
+            l2 = np.linalg.norm(amp[far] - ref[far]) / np.linalg.norm(ref[far])
+            say(f"{tag} piston oracle: last axial maximum at {x[i_pk]*1e3:.2f} mm (a^2/lambda "
+                f"{z_last*1e3:.2f} mm, gate 3 mm), peak {amp[i_pk]:.4e} Pa against 2 p0 "
+                f"({gain*100:.2f}%, gate 10%), far field (x > 80 mm) rel-L2 {l2:.4f} (gate 0.15)")
+            if not (abs(x[i_pk] - z_last) < 3e-3 and gain < 0.1 and l2 < 0.15):
+                raise AssertionError(f"{tag} the piston oracle's gates fail")
+        if (sc, bm) == (1, 4):
+            xw, ampw = profiles[(1, 1)]
+            print(tag, end="")
+            tc = ph1.transmission_check(sc, bm, x, amp, xw, ampw)
+            ref = json.loads((PH1_RESULTS / "validation_sc1_bm4.json").read_text())
+            say(f"{tag} JAX package's run: measured {ref['transmission_1d']['measured']:.4f}, "
+                f"rel {ref['transmission_1d']['rel']:.4f} (gate 0.35)")
+            if not tc["pass"]:
+                raise AssertionError(f"{tag} the 1D transmission gate fails: {tc}")
+            run["transmission"] = tc
+        run["k2"] = k2_on_model(res.model, card, tag)
+        out[(sc, bm)] = run
+        del res
+    return out
+
+
+def phase_drift(device) -> dict:
+    """[17e] ``tools/fp32_drift.py`` on the card, linear and Westervelt, to
+    8000 steps, with ``tests/test_fp32_drift.py``'s gates, beside the JAX
+    package's committed tables."""
+    import torch
+
+    from fenicsxfus_tpu_torch.tools import fp32_drift
+
+    out = {}
+    for kind, table in (("linear", "fp32_drift.txt"), ("westervelt", "fp32_drift_westervelt.txt")):
+        t0 = time.perf_counter()
+        rows, _, _ = fp32_drift.drift(8000, kind, device)
+        seconds = time.perf_counter() - t0
+        ref = np.loadtxt(ROOT / "benchmarks" / table)
+        say(f"[17e] fp32 drift, {kind} ({seconds:.1f} s, {torch.cuda.get_device_name(device)}): "
+            "steps, drift_l2, drift_max, err fp64, err fp32 | the JAX package's table")
+        for r, j in zip(rows, ref):
+            say(f"[17e]   {r[0]:5d}  {r[1]:.4e}  {r[2]:.4e}  {r[3]:.4e}  {r[4]:.4e} | "
+                f"{int(j[0]):5d}  {j[1]:.4e}  {j[2]:.4e}  {j[3]:.4e}  {j[4]:.4e}")
+        fails = fp32_drift.gates(rows, kind)
+        if fails:
+            raise AssertionError(f"[17e] {kind} drift gates fail: {fails}")
+        out[kind] = {"drift_l2": {r[0]: r[1] for r in rows}, "seconds": seconds}
+    say("[17e] drift gates hold: drift_l2 < 1e-4 from 7488 steps on (both), err32 < 2 err64 "
+        "(linear)")
+    return out
+
+
+def phase_production(device, card) -> dict:
+    """[17]: (a) native geometry, (b) the 1.1 MHz run, (c) the other HITU
+    variants, (d) PH1, (e) fp32 drift."""
+    t_phase = time.perf_counter()
+    out = {"native": phase_native(card)}
+    say(f"[17a] done at {time.perf_counter() - t_phase:.1f} s")
+    out["full"] = phase_full(device, card)
+    say(f"[17b] done at {time.perf_counter() - t_phase:.1f} s")
+    out["variants"] = phase_variants(device, card)
+    say(f"[17c] done at {time.perf_counter() - t_phase:.1f} s")
+    out["ph1"] = phase_ph1(device, card)
+    say(f"[17d] done at {time.perf_counter() - t_phase:.1f} s")
+    out["drift"] = phase_drift(device)
+    say(f"[17] done in {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2771,6 +3115,7 @@ def main() -> int:
     implicit = phase_implicit(device, card, ptxas)
     phase_general(device, card, bowl["bowl"])
     family = phase_family(device, card)
+    prod = phase_production(device, card)
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
     # from phase [11], K3 from phase [12] (HITU for focused, the headline
@@ -2845,6 +3190,19 @@ def main() -> int:
                       "stiffness.cu", "fenicsxfus_tpu/ops/pallas_v3.py:276",
                       fam["adaptive"]["westervelt"]["launches"]["K1"],
                       fam["adaptive"]["westervelt"]["k1"])]
+    # K2 on [17]'s paths: focused at the 1.1 MHz lattice, and each PH1
+    # case's kind at its lattice and coefficients (timed on the model's own
+    # operands, the first non-final stage)
+    k2 = prod["full"]["k2"]["non-final"]
+    kernels.append(entry(f"stage_apply focused {k2['coeff']} (K2), W-H131-WATER 1.1 MHz "
+                         f"{k2['gdims']}", "stage.cu", "fenicsxfus_tpu/ops/pallas_stage_v3.py:442",
+                         prod["full"]["launches"], k2))
+    for (sc, bm), kind in PH1_CASES.items():
+        run = prod["ph1"][(sc, bm)]
+        k2 = run["k2"]["non-final"]
+        kernels.append(entry(f"stage_apply {kind} {k2['coeff']} p={run['degree']} (K2), PH1 "
+                             f"SC{sc}-BM{bm} {k2['gdims']}", "stage.cu",
+                             "fenicsxfus_tpu/ops/pallas_stage_v3.py:442", run["launches"], k2))
     say(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

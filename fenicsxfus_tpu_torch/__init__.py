@@ -30,8 +30,13 @@ and the general per-cell operator path of any conforming quad/hex mesh
 (unstructured meshes with the entity-blocked numbering, ``as_unstructured``
 and ``reorder_locality``; deformed lattices; the bowl mesh under
 ``FUS_HYBRID=0``; uniform lattices that are not axis-aligned), plain torch
-as in the JAX package's XLA path, with a deterministic fold. Entry points run on the card unless the caller asks for the CPU
-(``device="cpu"``).
+as in the JAX package's XLA path, with a deterministic fold; the native host
+geometry library (``native/``), XDMF/HDF5 I/O (``io/xdmf.py``), and the
+production drivers: every HITU variant (``drivers/hitu.py``, the 1.1 MHz
+reference-scale run and ``check_artifact``), the PH1 transcranial suite
+(``drivers/ph1.py``), the harmonic analysis (``drivers/harmonics.py``) and the
+fp32 drift tool (``tools/fp32_drift.py``). Entry points run on the card unless
+the caller asks for the CPU (``device="cpu"``).
 """
 
 from .core.bowl import bowl_cap_area, create_bowl_box  # noqa: F401

@@ -28,6 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import native
 from . import geometry_chunks
 from .geometry_chunks import chunk_factors
 from .geometry_chunks import jacobians as _jacobians
@@ -130,21 +131,35 @@ def quadrature_factors(
     ``fenicsx-pc`` variant decouples quadrature from basis degree,
     ``cpp/fenicsx-pc/common/precompute_op.hpp``).
 
-    The per-cell arithmetic is the JAX package's numpy path; it runs over
-    ``CHUNK_CELLS`` cells at a time, so [chunk, Nq, d, d] Jacobians, not
-    [Nc, Nq, d, d], live on the host beside the results, and from
-    ``PARALLEL_CELLS`` cells on the chunks are shared among worker
-    processes (``_factors_in_workers``), one per core up to 8. Every cell's
-    factors are the same bits whatever the chunking.
+    From ``PARALLEL_CELLS`` cells on, as in the JAX package, the native
+    library (``native/geometry.cpp``, built at first use; a failed build
+    raises) streams the factors cell by cell over threads. Below that, or
+    under ``FUS_NATIVE=0``, the per-cell arithmetic is the JAX package's
+    numpy path; it runs over ``CHUNK_CELLS`` cells at a time, so [chunk,
+    Nq, d, d] Jacobians, not [Nc, Nq, d, d], live on the host beside the
+    results, and from ``PARALLEL_CELLS`` cells on the chunks are shared
+    among worker processes (``_factors_in_workers``), one per core up to 8.
+    Every cell's numpy factors are the same bits whatever the chunking.
     """
     d = mesh.dim
-    dshape = _geom_grad_tensor([x1] * d)  # [nq**d, 2**d, d]
     # weights at the tensor lattice
     w = w1
     for _ in range(d - 1):
         w = np.multiply.outer(w, w1).reshape(-1)
     pairs = SYM_PAIRS[d]
-    nc, nq = mesh.num_cells, dshape.shape[0]
+    nc = mesh.num_cells
+    if nc >= PARALLEL_CELLS and native.enabled():
+        grids = np.meshgrid(*([x1] * d), indexing="ij")
+        qpts = np.stack([g.reshape(-1) for g in grids], axis=-1)
+        wdetJ, G = native.volume_factors(mesh.cell_vertices(), qpts, w)
+        # w > 0, so w·|det J| is 0 exactly where det J is (as the numpy
+        # path, count the points)
+        degenerate = int(np.count_nonzero(~(wdetJ > 0)))
+        if degenerate:
+            raise ValueError(f"{degenerate} degenerate cells (detJ == 0)")
+        return wdetJ, G
+    dshape = _geom_grad_tensor([x1] * d)  # [nq**d, 2**d, d]
+    nq = dshape.shape[0]
     bounds = [(c0, min(c0 + CHUNK_CELLS, nc)) for c0 in range(0, nc, CHUNK_CELLS)]
 
     def chunk_args(c0, c1):

@@ -16,7 +16,10 @@ one card; ``full=True`` selects the true 1.1 MHz.
 
 Run on the card, e.g. ``python -m fenicsxfus_tpu_torch.drivers.hitu W H101 WATER``
 (``--bowl`` for the bowl-fitted mesh, ``--oneil`` for the O'Neil check of
-either).
+either, ``--check`` a committed run to hold the result against). The
+reference-scale problem of ``W-H131-WATER/main.cpp`` (1.1 MHz, nx = 164,
+85,620,897 DOF, 7488 RK4 steps) is ``W H131 WATER --full --nx 164 --check
+benchmarks/hitu/results/w_h131_water_full11MHz.npz``.
 """
 
 from __future__ import annotations
@@ -115,6 +118,23 @@ def build_model(kind: str, tx: str, medium: str, nx: int, degree: int = 4,
     return model, h, dt, spp
 
 
+def bowl_mesh(tx: str, nx: int):
+    """The bowl-fitted mesh of transducer ``tx`` with ``nx`` axial cells
+    (``create_bowl_box``; blend depth ``FUS_BOWL_BLEND_MULT`` = 2 sagittae
+    and lateral hold ``FUS_BOWL_HOLD_MULT`` = 0.25 blend lengths by
+    default): (mesh, uniform axial spacing h)."""
+    g = TRANSDUCERS[tx]
+    L, W = g["L"], g["W"]
+    h = L / nx
+    nyz = max(int(round(W / h)), 2)
+    sag = g["roc"] - np.sqrt(g["roc"] ** 2 - g["a"] ** 2)
+    blend = float(os.environ.get("FUS_BOWL_BLEND_MULT", "2.0")) * sag
+    hold = float(os.environ.get("FUS_BOWL_HOLD_MULT", "0.25")) * blend
+    mesh, _ = create_bowl_box((nx, nyz, nyz), (0.0, -W / 2, -W / 2), (L, W / 2, W / 2),
+                              g["roc"], g["a"], blend=blend, lateral_hold=hold)
+    return mesh, h
+
+
 def build_bowl_model(kind: str, tx: str, medium: str, nx: int, degree: int = 4,
                      f0: float | None = None, cfl: float = 0.3, dtype=None,
                      linear: bool = False, device="cuda"):
@@ -130,19 +150,10 @@ def build_bowl_model(kind: str, tx: str, medium: str, nx: int, degree: int = 4,
     parts is added to ``model.ops.setup_seconds``. Returns (model, h, dt,
     steps per period)."""
     dtype = dtype or torch.float32
-    g = TRANSDUCERS[tx]
     f0 = f0 or F0_FULL
     c0, rho0, p0, delta0, beta0 = _medium(kind, tx, medium, f0, linear)
-
-    L, W = g["L"], g["W"]
-    h = L / nx
-    nyz = max(int(round(W / h)), 2)
-    sag = g["roc"] - np.sqrt(g["roc"] ** 2 - g["a"] ** 2)
-    blend = float(os.environ.get("FUS_BOWL_BLEND_MULT", "2.0")) * sag
-    hold = float(os.environ.get("FUS_BOWL_HOLD_MULT", "0.25")) * blend
     t0 = time.perf_counter()
-    mesh, _ = create_bowl_box((nx, nyz, nyz), (0.0, -W / 2, -W / 2), (L, W / 2, W / 2),
-                              g["roc"], g["a"], blend=blend, lateral_hold=hold)
+    mesh, h = bowl_mesh(tx, nx)
     t_mesh = time.perf_counter() - t0
 
     # the CFL rule on the uniform spacing; stability on the deformed cells
@@ -262,6 +273,31 @@ def run(kind: str, tx: str, medium: str, nx: int = 80, degree: int = 4,
     return HituRun(x, amp, model, setup, elapsed, len(times), split)
 
 
+def check_artifact(run, npz) -> dict:
+    """Hold a run's steady axial amplitude (``run.x``, ``run.amplitude``:
+    a ``HituRun`` or a ``ph1.Ph1Run``) against a committed run ``npz`` on
+    the same sensors: the focal peak within 2% and its sensor within ±1 of
+    the committed run's; the axial profile's largest difference, relative to
+    the committed peak, is printed beside them. Returns the numbers and
+    ``ok``."""
+    ref = np.load(npz)
+    ref_amp, ref_x = np.asarray(ref["amplitude"], np.float64), ref["x"]
+    if np.shape(run.x) != ref_x.shape or not np.allclose(run.x, ref_x, rtol=0, atol=1e-12):
+        raise ValueError(f"{npz}: the committed run's sensors are not this run's")
+    amp = np.asarray(run.amplitude, np.float64)
+    i_pk, i_ref = int(np.argmax(amp)), int(np.argmax(ref_amp))
+    rel_peak = float((amp[i_pk] - ref_amp[i_ref]) / ref_amp[i_ref])
+    profile = float(np.max(np.abs(amp - ref_amp)) / ref_amp[i_ref])
+    ok = abs(rel_peak) < 0.02 and abs(i_pk - i_ref) <= 1
+    print(f"  against {os.path.basename(npz)}: peak {amp[i_pk]:.6e} Pa at x = "
+          f"{ref_x[i_pk]*1e3:.2f} mm (sensor {i_pk}), committed {ref_amp[i_ref]:.6e} Pa at "
+          f"{ref_x[i_ref]*1e3:.2f} mm (sensor {i_ref}): relative difference {rel_peak:.4e}, "
+          f"axial profile max rel diff {profile:.4e} -> {'PASS' if ok else 'MISS'} "
+          f"(2%, ±1 sensor)", flush=True)
+    return {"ok": ok, "rel_peak": rel_peak, "profile_rel": profile, "peak_pa": float(amp[i_pk]),
+            "ref_pa": float(ref_amp[i_ref]), "sensor": i_pk, "ref_sensor": i_ref}
+
+
 def _oneil_check(label, tx, f0, nx, degree, model, h, out):
     """Run ``model`` (linear, β = δ = 0) for the O'Neil check of transducer
     ``tx`` at ``f0`` and compare its steady axial amplitude with the O'Neil
@@ -349,14 +385,26 @@ def main(argv=None) -> None:
     ap.add_argument("--bowl", action="store_true",
                     help="on the bowl-fitted mesh (curved transducer facets) instead of the "
                          "phased flat aperture")
+    ap.add_argument("--check", default=None,
+                    help="a committed run (.npz) to hold the result against: the focal peak "
+                         "(check_artifact), or with --oneil its O'Neil errors, printed beside")
     args = ap.parse_args(argv)
     if args.oneil:
         check = validate_bowl_mesh if args.bowl else validate_oneil
-        check(args.tx, f0=args.f0 or 0.35e6, nx=args.nx or 64, degree=args.degree,
-              out=args.out, device=args.device)
+        errs = check(args.tx, f0=args.f0 or 0.35e6, nx=args.nx or 64, degree=args.degree,
+                     out=args.out, device=args.device)
+        if args.check:
+            ref = json.loads(str(np.load(args.check)["meta"]))
+            print(f"  committed run {os.path.basename(args.check)}: gain error "
+                  f"{ref['gain_err']*100:.3f}% (here {errs[0]*100:.3f}%), position error "
+                  f"{ref['pos_err_mm']:.3f} mm (here {errs[1]*1e3:.3f}), focal L2 "
+                  f"{ref['profile_err']*100:.3f}% (here {errs[2]*100:.3f}%)")
         return
-    run(args.kind, args.tx, args.medium, nx=args.nx or 80, degree=args.degree, full=args.full,
-        f0=args.f0, out=args.out, nyz=args.nyz, bowl=args.bowl, device=args.device)
+    res = run(args.kind, args.tx, args.medium, nx=args.nx or 80, degree=args.degree,
+              full=args.full, f0=args.f0, out=args.out, nyz=args.nyz, bowl=args.bowl,
+              device=args.device)
+    if args.check and not check_artifact(res, args.check)["ok"]:
+        raise SystemExit(f"focal peak outside 2% / ±1 sensor of {args.check}")
 
 
 if __name__ == "__main__":

@@ -218,6 +218,7 @@ def test_quadrature_factors_chunked_equal_unchunked(chunk, parallel, monkeypatch
     x1, w1 = gll_points_weights_01(5)
     whole = tgeom.quadrature_factors(mesh, x1, w1)
     assert mesh.num_cells < tgeom.CHUNK_CELLS
+    monkeypatch.setenv("FUS_NATIVE", "0")  # the workers, not the native library
     monkeypatch.setattr(tgeom, "CHUNK_CELLS", chunk)
     monkeypatch.setattr(tgeom, "PARALLEL_CELLS", 1 if parallel else 10**9)
     got = tgeom.quadrature_factors(mesh, x1, w1)
@@ -245,6 +246,7 @@ def test_quadrature_factors_workers_end(degenerate, monkeypatch):
     if degenerate:
         mesh = tmesh.Mesh(dim=3, vertices=np.zeros_like(mesh.vertices), cells=mesh.cells)
     x1, w1 = gll_points_weights_01(3)
+    monkeypatch.setenv("FUS_NATIVE", "0")  # the workers, not the native library
     monkeypatch.setattr(tgeom, "CHUNK_CELLS", 4)
     monkeypatch.setattr(tgeom, "PARALLEL_CELLS", 1)
     before = _children()
