@@ -161,6 +161,27 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    Westervelt, fp32 beside fp64 to 8000 steps, with the gates of
    ``tests/test_fp32_drift.py``.
 
+18. this slice's scripts on the card: (a) every ported example and
+   experiment and MENDOUSSE (``--quick``) through its ``main`` at the
+   script's width and dtype over the fraction of its horizon in
+   ``SCRIPTS`` (a depth cut where the whole horizon does not fit), its
+   fields finite, its ``.npz`` read back, in 3D its stage kernel 4 times a
+   step and 3 more steps against ``stage_plain``, in 1D/2D no kernel, and
+   the script's own gate where it ran whole (the scattering ring, the
+   bowl's O'Neil gain); then the same
+   script in fp64 on the card and on the CPU over a shorter horizon, held
+   together (1e-10, 1e-7 through a CG; the bowl is held by its gate
+   instead); each 2D script also at its CPU test's size over its whole
+   horizon, fp64, card against CPU; the two reference-mesh readers are left
+   out (no reference meshes there); (b) ``tools/operator_speed.py`` at its defaults
+   (p = 2..6 at about 38.3M DOF, constant and DG-0, K1 and then K4a -> K4b
+   under ``FUS_V3=0``, the mass divide), each apply held against the plain
+   one before it is timed; (c) ``tools/stage_attrib.py`` (K2 ``linear`` at
+   417³ with 0, 1, 2 slope operands, each against ``stage_plain``); (d)
+   ``tools/solver_speed.py`` for the linear, lossy and Westervelt models at
+   417³, 101 steps, then 3 more steps against ``stage_plain``; (e) ``tools/hybrid_speed.py`` (lattice, hybrid, band at
+   the H101 bowl mesh, nx = 80).
+
 Each phase prints its wall time. Every kernel wrapper counts its launches;
 the counts are set to 0 just before a main path runs and read just after.
 The line before the last is one JSON object with the per-kernel numbers
@@ -181,15 +202,16 @@ from pathlib import Path
 
 import numpy as np
 
+# the bounds of every timed call (H100 peaks; fenicsxfus_tpu_torch/tools/bounds.py)
+from fenicsxfus_tpu_torch.tools.bounds import (  # noqa: F401
+    FP32_FLOP_PER_S, FP64_FLOP_PER_S, HBM_BYTES_PER_S, STAGE_NODE_FLOPS, floor_ms, nbytes,
+    share_text, stage_floor, stencil_flops,
+)
+
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5  # fp32, sums of ~30 terms taken in another order than the plain version
 HEADLINE_NX = 104
 STEPS = 101
-# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): device memory
-# bytes/s, and fp32 and fp64 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-FP64_FLOP_PER_S = 34e12
 # two-kernel pipeline switches (read as the JAX package reads them)
 TWO_KERNEL_ENV = {"FUS_STAGE_V3": "0", "FUS_V3": "0"}
 # the whole-step wavefront's switch
@@ -252,51 +274,6 @@ def rel_err(a, b) -> tuple[float, float]:
     d = float((a.double() - b.double()).abs().max())
     scale = max(float(b.double().abs().max()), 1e-300)
     return d / scale, d
-
-
-def nbytes(*objs) -> int:
-    """Bytes of the tensors in ``objs`` (nested in lists and dicts; None is
-    absent)."""
-    total = 0
-    for o in objs:
-        if isinstance(o, dict):
-            total += nbytes(*o.values())
-        elif isinstance(o, (list, tuple)):
-            total += nbytes(*o)
-        elif o is not None:
-            total += o.numel() * o.element_size()
-    return total
-
-
-def stencil_flops(gdims, p: int, nf: int, axes) -> float:
-    """Floating-point operations of the stiffness stencil of ``nf`` fields
-    over ``axes``: per node and axis, 2N per cell holding the node (two at
-    an interface) plus the coefficient product."""
-    nodes = float(np.prod(gdims))
-    flops = 0.0
-    for a in axes:
-        n = (gdims[a] - 1) // p
-        flops += nodes * nf * (2 * (p + 1) + 1) * (1.0 + (n - 1) / gdims[a])
-    return flops
-
-
-STAGE_NODE_FLOPS = 16  # per node: the stage fields, facet terms and epilogue
-
-
-def floor_ms(read: int, written: int, flops: float, flop_rate: float = FP32_FLOP_PER_S) -> dict:
-    """The least time the card could take for a call that reads ``read``
-    bytes once, writes ``written`` bytes once and does ``flops`` operations
-    at ``flop_rate`` (fp32 unless given): the larger of the two times, and
-    which one it is."""
-    t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_rate * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def share_text(bound: dict, ms: float) -> str:
-    """The bound of a timed call and its share of the call's time."""
-    return (f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), bound/ms "
-            f"{bound['bound_ms'] / ms:.3f}")
 
 
 def split_plan_line(gdims, kind: str) -> str:
@@ -568,32 +545,6 @@ def _stage_inputs(kind, lat, device, gen, rng, final, scale, dg0=False):
         + ([1.0, 0.02, 0.03, 0.01, 0.15, 0.3, 0.3, 0.15] if final else []),
         p=lat.p, final=final,
     )
-
-
-def stage_floor(args: dict, kernel: str) -> dict:
-    """``floor_ms`` of one call of stage kernel ``kernel`` (K2, K5a or K5b)
-    on the operands ``args`` of ``_stage_inputs``: the tensors that kernel
-    reads, each once, and what it writes."""
-    from fenicsxfus_tpu_torch.ops.stage import KIND_FIELDS
-
-    nf = KIND_FIELDS[args["kind"]]
-    gd, p, u0 = tuple(args["u0"].shape), args["p"], args["u0"]
-    nodes = float(np.prod(gd))
-    if kernel == "K5a":  # u0, v0, kvp (two-field kinds), kvpp, F0 -> yA
-        kvp = args["kvp"] if nf > 1 else None
-        read = nbytes(u0, args["v0"], kvp, args["kvpp"], [F["F0"] for F in args["Fs"]])
-        return floor_ms(read, nbytes(u0), stencil_flops(gd, p, nf, (0,)) + 3 * nf * nodes)
-    state = nbytes(u0, args["v0"], args["kvp"], args["kvpp"], args["prev"], args["dense"],
-                   args["facets"])
-    band = args.get("band")  # K2's band operand, if any: read once, one add a node
-    if kernel == "K2":
-        read, axes = state + nbytes(args["Fs"], band), (0, 1, 2)
-    else:  # K5b: + yA, F1 and F2
-        read = state + nbytes(u0, [[F["F1"], F["F2"]] for F in args["Fs"]])
-        axes = (1, 2)
-    written = nbytes(u0) * (2 if args["final"] else 1)
-    flops = stencil_flops(gd, p, nf, axes) + STAGE_NODE_FLOPS * nodes
-    return floor_ms(read, written, flops + (0 if band is None else band.numel()))
 
 
 def phase_k2(device, card, grids, headline) -> dict:
@@ -3075,6 +3026,475 @@ def phase_production(device, card) -> dict:
     return out
 
 
+# ---------------- [18] the examples, experiments, MENDOUSSE and the speed tools
+
+# Each ported script (module under fenicsxfus_tpu_torch, keyword arguments):
+# the card's run through ``main`` at the script's width and dtype over the
+# fraction RUN of its horizon (a depth cut where the whole horizon does not
+# fit the script's time limit: the 1D/2D scripts are launch-bound, 1-16 ms
+# a step on the card, with the host's speed), then the card's and the CPU's
+# runs in fp64 over the fraction HELD, held together (the CPU's in a worker
+# process while the card runs); HELD None where the script's own gate at
+# its whole horizon holds it instead (the bowl's O'Neil gain: three setups
+# of its 2.46M-DOF mesh cost 40 s). (module, kwargs, RUN, HELD)
+SCRIPTS = (
+    ("examples.linear_planewave1d", {}, 0.005, 0.004),
+    ("examples.linear_planewave1d", {"hetero": True}, 0.003, 0.002),
+    ("examples.linear_planewave1d_imp", {}, 0.05, 0.05),
+    ("examples.linear_planewave1d_newmark", {}, 0.1, 0.1),
+    ("examples.westervelt_planewave1d", {}, 0.01, 0.01),
+    ("examples.linear_planewave2d", {}, 0.05, 0.001),
+    ("examples.linear_planar2d", {}, 0.05, 0.001),
+    ("examples.lossy_planewave2d", {}, 0.03, 0.0005),
+    ("examples.westervelt_planewave2d", {}, 0.008, 0.0002),
+    ("examples.westervelt_planar2d", {}, 0.005, 0.0001),
+    ("examples.lossy_planar2d_heterogeneous", {}, 0.012, 0.0003),
+    ("examples.westervelt_planar2d_heterogeneous", {}, 0.012, 0.0003),
+    ("examples.linear_planewave2d_windowed", {}, 0.05, 0.001),
+    ("examples.linear_planewave2d_sponge", {}, 0.012, 0.0003),
+    ("examples.linear_scattering2d", {}, 1.0, 0.005),
+    ("examples.linear_planewave2d_imp", {}, 0.03, 0.0025),
+    ("examples.linear_planar2d_imp", {}, 0.03, 0.0025),
+    ("examples.lossy_planewave2d_imp", {}, 0.03, 0.0025),
+    ("examples.lossy_planar2d_imp", {}, 0.03, 0.0025),
+    ("examples.linear_planewave3d", {}, 1.0, 0.005),
+    ("examples.linear_bowl3d", {}, 1.0, None),
+    ("experiments.exp1_windowing", {}, 0.1, 0.1),
+    ("experiments.exp2_p_convergence", {}, 0.02, 0.02),
+    ("experiments.exp3_source_conformity", {}, 1.0, 0.1),
+    ("experiments.exp4_rk_order", {}, 0.02, 0.02),
+    ("experiments.exp5_delta_stiffness", {}, 0.02, 0.02),
+    ("drivers.mendousse", {"quick": True}, 0.02, 0.02),
+)
+# HELD reaches a few steps into a 2D script's horizon, before the wave leaves
+# the source face. So each 2D script is also held at its CPU test's size
+# (tests/test_torch_examples.py: epw 1, p 1 or 2), card against CPU in fp64
+# over the whole horizon, where the wave crosses the domain and the ABC, the
+# Westervelt term, the media and the sponge act. (module, kwargs)
+SMALL = tuple((f"examples.{name}", {"epw": 1, "degree": degree}) for name, degree in (
+    ("linear_planewave2d", 2), ("linear_planar2d", 2), ("lossy_planewave2d", 2),
+    ("westervelt_planewave2d", 2), ("westervelt_planar2d", 1),
+    ("lossy_planar2d_heterogeneous", 1), ("westervelt_planar2d_heterogeneous", 1),
+    ("linear_planewave2d_windowed", 2), ("linear_planewave2d_sponge", 1),
+    ("linear_planewave2d_imp", 2), ("linear_planar2d_imp", 2), ("lossy_planewave2d_imp", 2),
+    ("lossy_planar2d_imp", 2)))
+CPU_THREADS = 4  # the CPU worker's torch threads (the card's process keeps the rest)
+# need a mesh file of the reference's (``--mesh``), which the card's machine
+# does not hold: held on the CPU only (tests/test_torch_examples.py)
+CPU_ONLY = ("examples.linear_from_reference_mesh",
+            "examples.linear_planewave2d_sponge_unstructured")
+SCATTER_GATE = 0.05  # the ring's steady amplitudes against the exact series
+ONEIL_GATE = 0.08  # the bowl's focal gain against O'Neil's (drivers.hitu.validate_oneil's)
+
+
+def script_key(name: str, kwargs: dict) -> str:
+    """The script and its arguments as its command line gives them."""
+    return name + "".join(f" --{k}" if v is True else f" --{k} {v}" for k, v in kwargs.items())
+
+
+def script_fields(res: dict) -> dict:
+    """The fields a script's ``main`` returned, by name: the final u (of
+    each run, for the experiments), the sensor traces and exp4's reference."""
+    import torch
+
+    out = {}
+    for key in ("u", "u_ref", "ys"):
+        val = res.get(key)
+        if isinstance(val, dict):
+            out.update({f"{key}[{k}]": v for k, v in val.items()})
+        elif val is not None:
+            out[key] = torch.as_tensor(val)
+    for i, (delta, frac, u) in enumerate(res.get("runs", ())):
+        out[f"run {i} (delta {delta:g}, dt/dt0 {frac:g})"] = u
+    return out
+
+
+def script_gate(name: str, res: dict, depth: float) -> str:
+    """The script's own gate, where it has one and ran its whole horizon
+    (the scattering ring and the bowl's O'Neil gain; the other scripts are
+    held against the CPU); raises on a miss, returns its line."""
+    if depth != 1.0:
+        return ""
+    if name == "examples.linear_scattering2d":
+        ok, line = res["err"] < SCATTER_GATE, f"ring error {res['err']:.4f} (gate {SCATTER_GATE})"
+    elif name == "examples.linear_bowl3d":
+        ok = res["gain_err"] < ONEIL_GATE
+        line = (f"O'Neil focal gain error {res['gain_err'] * 100:.3f}% (gate "
+                f"{ONEIL_GATE * 100:g}%), peak at {res['x_peak'] * 1e3:.1f} mm")
+    else:
+        return ""
+    if not ok:
+        raise AssertionError(f"[18a] {name}: the script's gate fails: {line}")
+    return line
+
+
+def fused_against_plain(model, tag: str, steps: int = 3) -> float:
+    """``steps`` fused RK steps from the model's state through its stage
+    kernels and through ``stage_plain`` (the band formed alike): max rel
+    diff <= TOL (fp32) or TOL64."""
+    import torch
+
+    from fenicsxfus_tpu_torch.models.common import run_steps
+    from fenicsxfus_tpu_torch.ops.stage import stage_plain
+
+    gd = model.ops.gdims
+    u, v, dts = model.u_n.view(gd), model.v_n.view(gd), [model.dt] * steps
+    uk, vk, _ = run_steps(model.fused_step(), model.consts, u, v, model.t, dts)
+    up, vp, _ = run_steps(model.fused_step(stage_fn=stage_plain), model.consts, u, v, model.t,
+                          dts)
+    torch.cuda.synchronize()
+    worst = max(rel_err(uk, up)[0], rel_err(vk, vp)[0])
+    gate = TOL64 if model.dtype == torch.float64 else TOL
+    say(f"{tag} {steps} more steps, the stage kernel against stage_plain: max rel diff "
+        f"{worst:.3e} (gate {gate:g})")
+    if not worst <= gate:
+        raise AssertionError(f"{tag} the kernel path disagrees with the plain path: {worst:.3e}")
+    return worst
+
+
+def check_script_launches(tag, model, launches) -> None:
+    """Raise unless a 3D model ran its stage kernel (K2, with or without a
+    band) a whole number of RK4 steps and no kernel but it and K1, and a
+    1D/2D one (or a script without a model) no kernel."""
+    ran = {k: v for k, v in launches.items() if v}
+    if model is not None and model.ops.d == 3:
+        n = sum(sum(launches[k].values()) for k in ("K2", "K2+band"))
+        if not (n and n % 4 == 0 and set(ran) <= {"K2", "K2+band", "K1"}):
+            raise AssertionError(f"{tag} expected the stage kernel 4 times a step: {launches}")
+    elif ran:
+        raise AssertionError(f"{tag} a kernel ran on a 1D/2D lattice: {ran}")
+
+
+def run_script(name, kwargs, depth, device, tmp, dtype=None):
+    """``main`` of the ported script ``name`` on ``device`` over ``depth`` of
+    its horizon, its files under ``tmp``: (its dict, host seconds)."""
+    import importlib
+    import inspect
+
+    import torch
+
+    main = importlib.import_module(f"fenicsxfus_tpu_torch.{name}").main
+    kw = dict(kwargs, depth=depth, device=device)
+    params = inspect.signature(main).parameters
+    if "out" in params:
+        kw["out"] = os.path.join(tmp, name.split(".")[-1])
+    if dtype is not None and "dtype" in params:
+        kw["dtype"] = dtype
+    t0 = time.perf_counter()
+    res = main(**kw)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def cpu_worker() -> None:
+    """The CPU process of ``phase_scripts`` (``python -c "import chip_smoke;
+    chip_smoke.cpu_worker()"``): reads (jobs, directory) pickled on stdin,
+    runs each job's script in fp64 on the CPU over its depth, and saves its
+    fields and host seconds to ``held<i>.pt`` in the directory (written
+    under another name, then renamed into place)."""
+    import pickle
+
+    import torch
+
+    jobs, tmp = pickle.load(sys.stdin.buffer)
+    torch.set_num_threads(CPU_THREADS)
+    for i, (name, kwargs, depth) in enumerate(jobs):
+        res, secs = run_script(name, kwargs, depth, "cpu", os.path.join(tmp, "cpu"),
+                               torch.float64)
+        path = os.path.join(tmp, f"held{i}.pt")
+        torch.save((script_fields(res), secs), path + ".part")
+        os.replace(path + ".part", path)
+
+
+class CpuRuns:
+    """The CPU's fp64 runs of ``jobs`` ((name, kwargs, depth) each) in one
+    worker process (``cpu_worker``), started on entry and ended (killed if
+    still running) on exit; ``get(i)`` waits for job i's (fields, seconds)."""
+
+    def __init__(self, jobs, tmp):
+        self.jobs, self.tmp = jobs, tmp
+
+    def __enter__(self):
+        import pickle
+
+        os.mkdir(os.path.join(self.tmp, "cpu"))
+        self.log = open(os.path.join(self.tmp, "cpu_worker.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.cpu_worker()"], cwd=ROOT,
+            stdin=subprocess.PIPE, stdout=subprocess.DEVNULL, stderr=self.log)
+        self.proc.stdin.write(pickle.dumps((self.jobs, self.tmp)))
+        self.proc.stdin.close()
+        return self
+
+    def get(self, i: int, timeout: float = 600.0):
+        import torch
+
+        path = os.path.join(self.tmp, f"held{i}.pt")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None or time.perf_counter() - t0 > timeout:
+                self.log.flush()
+                with open(self.log.name) as f:
+                    tail = f.read()[-3000:]
+                raise RuntimeError(f"[18a] the CPU worker gave no result for {self.jobs[i][0]} "
+                                   f"(exit {self.proc.poll()}):\n{tail}")
+            time.sleep(0.05)
+        return torch.load(path)
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            if exc[0] is None:
+                self.proc.wait(timeout=60)
+            else:
+                self.proc.kill()
+        self.proc.wait()
+        self.log.close()
+        return False
+
+
+def phase_script(name, kwargs, run_depth, held_depth, device, card, tmp, cpu) -> dict:
+    """[18a] one ported script: its run on the card (counts from 0 just
+    before, read just after: in 3D its stage kernel 4 times a step and no
+    other, in 1D and 2D no kernel, as the JAX package has none there), its
+    fields finite and its ``.npz`` written and read back, its own gate; a 3D
+    model 3 more steps against the plain path; then the card against the CPU
+    in fp64 over ``held_depth`` (1e-10, or 1e-7 through a CG's stopping
+    test): ``cpu()`` waits for the CPU worker's run (None when the
+    script's gate holds it instead). A script that runs fp64 whatever the device
+    (no ``dtype`` argument) and whose two depths are equal is held on its
+    first run."""
+    import torch
+
+    import importlib
+    import inspect
+
+    tag = f"[18a] {script_key(name, kwargs)}:"
+    reset_counts()
+    res, secs = run_script(name, kwargs, run_depth, device, tmp)
+    launches = counts()
+    model = res.get("model")
+    fields = script_fields(res)
+    for key, f in fields.items():  # (exp5's unstable runs may overflow, as they should)
+        f = torch.as_tensor(f)
+        if not (bool(torch.isfinite(f).all()) or key.startswith("run ")):
+            raise AssertionError(f"{tag} {key} is not finite")
+    if model is not None and model.device.type != torch.device(device).type:
+        raise AssertionError(f"{tag} ran on {model.device}")
+    steps = script_steps(model)
+    ran = {k: v for k, v in launches.items() if v}
+    say(f"{tag} {run_depth:g} of its horizon on the card in {secs:.2f} s{steps}, "
+        f"{'' if model is None else str(model.dtype).split('.')[-1]}, launches {ran} ({card})")
+    check_script_launches(tag, model, launches)
+    for path in res.get("paths", []):
+        if path.endswith(".npz") and not np.all(np.isfinite(np.load(path)["u"])):
+            raise AssertionError(f"{tag} {path} does not hold a finite u")
+    gate_line = script_gate(name, res, run_depth)
+    if gate_line:
+        say(f"{tag} gate: {gate_line}")
+    out = {"seconds": secs, "depth": run_depth, "launches": ran, "gate": gate_line}
+    if model is not None and model.ops.d == 3:
+        out["plain"] = fused_against_plain(model, tag)
+    cg = hasattr(model, "cg_stats")
+    if held_depth is None:
+        if not gate_line:
+            raise AssertionError(f"{tag} neither held against the CPU nor by its gate")
+        return out
+    # the card against the CPU, both fp64, over held_depth
+    main = importlib.import_module(f"fenicsxfus_tpu_torch.{name}").main
+    if held_depth == run_depth and "dtype" not in inspect.signature(main).parameters:
+        fk, sk, held_steps = fields, secs, steps
+    else:
+        rk, sk = run_script(name, kwargs, held_depth, device, tmp, torch.float64)
+        fk, held_steps = script_fields(rk), script_steps(rk.get("model"))
+        del rk
+    del res, model, fields
+    torch.cuda.empty_cache()
+    out.update(against_cpu(tag, f"{held_depth:g} of its horizon{held_steps}", fk, sk, cg, cpu))
+    return out
+
+
+def script_steps(model) -> str:
+    return "" if model is None else f", {int(round(model.t / model.dt))} steps"
+
+
+def against_cpu(tag, span, fk, sk, cg, cpu) -> dict:
+    """The card's fp64 fields ``fk`` (``sk`` s) against the CPU worker's run
+    of the same problem (``cpu()`` waits for it): max rel diff <= 1e-10, or
+    1e-7 through a CG's stopping test."""
+    import torch
+
+    fc, sc = cpu()
+    gate = 1e-7 if cg else 1e-10
+    worst = 0.0
+    for key, uc in fc.items():
+        if bool(torch.isfinite(uc).all()):
+            worst = max(worst, rel_err(torch.as_tensor(fk[key]).cpu(), uc)[0])
+    say(f"{tag} fp64, {span}: card {sk:.2f} s, CPU {sc:.2f} s, max|d|/max|u| over "
+        f"{len(fc)} field(s) = {worst:.3e} (gate {gate:g})")
+    if set(fk) != set(fc) or not worst <= gate:
+        raise AssertionError(f"{tag} the card's run differs from the CPU's: {worst:.3e}")
+    return {"held": worst, "held_s": (sk, sc)}
+
+
+def phase_small(name, kwargs, device, tmp, cpu) -> dict:
+    """[18a] a 2D script at its CPU test's size (``SMALL``) over its whole
+    horizon in fp64 on the card (no kernel, as in 2D at any size), held
+    against the CPU worker's run."""
+    import torch
+
+    tag = f"[18a] {script_key(name, kwargs)}:"
+    reset_counts()
+    res, secs = run_script(name, kwargs, 1.0, device, tmp, torch.float64)
+    model = res["model"]
+    check_script_launches(tag, model, counts())
+    if model.device.type != torch.device(device).type or model.dtype != torch.float64:
+        raise AssertionError(f"{tag} ran on {model.device} in {model.dtype}")
+    span = f"its whole horizon{script_steps(model)}"
+    return against_cpu(tag, span, script_fields(res), secs, hasattr(model, "cg_stats"), cpu)
+
+
+def phase_scripts(device, card) -> dict:
+    """[18a] every ported example and experiment and MENDOUSSE, then the 2D
+    examples at their CPU tests' size (``SMALL``); the CPU's runs in one
+    worker process (``CpuRuns``: all queued at the start, ended before this
+    returns or raises)."""
+    import tempfile
+
+    out = {}
+    held = [i for i, (_, _, _, depth) in enumerate(SCRIPTS) if depth is not None]
+    jobs = [(SCRIPTS[i][0], SCRIPTS[i][1], SCRIPTS[i][3]) for i in held]
+    jobs += [(name, kwargs, 1.0) for name, kwargs in SMALL]
+    with tempfile.TemporaryDirectory() as tmp, CpuRuns(jobs, tmp) as cpu:
+        for i, (name, kwargs, run_depth, held_depth) in enumerate(SCRIPTS):
+            job = (lambda j=held.index(i): cpu.get(j)) if i in held else None
+            out[script_key(name, kwargs)] = phase_script(name, kwargs, run_depth, held_depth,
+                                                         device, card, tmp, job)
+        for j, (name, kwargs) in enumerate(SMALL, start=len(held)):
+            out[script_key(name, kwargs)] = phase_small(name, kwargs, device, tmp,
+                                                        lambda j=j: cpu.get(j))
+    say(f"[18a] left out on the card: {', '.join(CPU_ONLY)} (they need a mesh file of the "
+        "reference's, given by --mesh, which this machine does not hold; held on the CPU by "
+        "tests/test_torch_examples.py)")
+    return out
+
+
+def phase_operator_speed(device, card) -> dict:
+    """[18b] ``tools/operator_speed.py`` at its defaults (about 38.3M DOF,
+    p = 2..6), K1 and then K4a -> K4b (``FUS_V3=0``), constant and DG-0
+    coefficients, each apply held against the plain one (TOL) before it is
+    timed; the K1 kernel's own entry for each degree (constant coefficient:
+    error, CUDA-event times of the kernel and the plain apply, bound)."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.stiffness import stiffness_apply, stiffness_plain
+    from fenicsxfus_tpu_torch.tools import operator_speed
+
+    out = {"rows": [], "k1": {}}
+    for degree in (2, 3, 4, 5, 6):
+        s = operator_speed.setup(degree, device=device)
+        for env, kernels in (({"FUS_V3": "1"}, ("K1",)), ({"FUS_V3": "0"}, ("K4a", "K4b"))):
+            with environment(env):
+                reset_counts()
+                rows = operator_speed.rows(s)
+                launches = counts()
+            if kernels == ("K1",):
+                k1_launches = launches["K1"]
+            for r in rows:
+                say(f"[18b] {operator_speed.row_text(r)} ({card})")
+                if r["rel"] is not None and not r["rel"] <= TOL:
+                    raise AssertionError(f"[18b] {r['op']} p={degree} disagrees with the plain "
+                                         f"apply: {r['rel']:.3e}")
+            if not all(launches[k] for k in kernels):
+                raise AssertionError(f"[18b] p={degree}: {kernels} did not launch: {launches}")
+            out["rows"] += rows
+        x, F, p = s["x"], s["coeffs"]["const"], degree
+        y, ref = stiffness_apply([x], [F], p), stiffness_plain([x], [F], p)
+        err = rel_err(y, ref)[1]
+        del y, ref
+        k1 = next(r for r in out["rows"] if r["degree"] == degree and r["pipeline"] == "K1")
+        out["k1"][degree] = {"max_abs_err": err, "ms": k1["ms"],
+                             "plain_ms": cuda_median_ms(lambda: stiffness_plain([x], [F], p)),
+                             "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+                             "gdims": s["ops"].gdims, "launches": k1_launches}
+        del s, x, F
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_stage_attrib(device, card) -> dict:
+    """[18c] ``tools/stage_attrib.py`` at its default (the headline lattice,
+    417³): K2 ``linear`` with 0, 1 and 2 slope operands, each held against
+    ``stage_plain`` (TOL) before it is timed."""
+    from fenicsxfus_tpu_torch.tools import stage_attrib
+
+    reset_counts()
+    res = stage_attrib.main(device=device)
+    launches = counts()["K2"].get("linear", 0)
+    for r in res["rows"]:
+        if not r["rel"] <= TOL:
+            raise AssertionError(f"[18c] {r['name']} disagrees with stage_plain: {r['rel']:.3e}")
+    if not launches:
+        raise AssertionError("[18c] K2 did not launch")
+    say(f"[18c] K2 launches {launches}, each held against stage_plain ({card})")
+    return res
+
+
+def phase_solver_speed(device, card) -> dict:
+    """[18d] ``tools/solver_speed.py`` at its defaults (nx = 104, 72.5M DOF,
+    101 RK4 steps) for the linear, lossy and Westervelt models: K2 of the
+    model's kind 4 times a step (the probe step, the warm-up step and the
+    101) and no other kernel; then, from the reached state, 3 more steps
+    through K2 against ``stage_plain`` (TOL)."""
+    import torch
+
+    from fenicsxfus_tpu_torch.tools import solver_speed
+
+    out = {}
+    for model in ("linear", "lossy", "westervelt"):
+        reset_counts()
+        res = solver_speed.main(model=model, device=device)
+        launches = counts()
+        ONE_KERNEL.check(launches, model, res["steps"] + 2, stiffness_launches=0)
+        say(f"[18d] {model}: K2 launches {launches['K2']} ({card})")
+        out[model] = {k: v for k, v in res.items() if k not in ("u", "eqn")}
+        out[model]["plain"] = fused_against_plain(res["eqn"], f"[18d] {model} at 417³:")
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid_speed(device, card) -> dict:
+    """[18e] ``tools/hybrid_speed.py`` at its defaults (H101 bowl mesh,
+    nx = 80): lattice (K1), hybrid (K1 + K6) and band (K6), the hybrid apply
+    equal to the lattice's plus the band's (TOL)."""
+    from fenicsxfus_tpu_torch.tools import hybrid_speed
+
+    reset_counts()
+    res = hybrid_speed.main(device=device)
+    if not (res["rel"] <= TOL and counts()["K1"]):
+        raise AssertionError(f"[18e] hybrid apply != lattice + band: {res['rel']:.3e}")
+    say(f"[18e] done ({card})")
+    return res
+
+
+def phase_slice(device, card) -> dict:
+    """[18]: (a) the examples, experiments and MENDOUSSE, (b) operator_speed,
+    (c) stage_attrib, (d) solver_speed, (e) hybrid_speed."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    for key, fn in (("scripts", phase_scripts), ("operator", phase_operator_speed),
+                    ("stage", phase_stage_attrib), ("solver", phase_solver_speed),
+                    ("hybrid", phase_hybrid_speed)):
+        out[key] = fn(device, card)
+        torch.cuda.empty_cache()
+        say(f"[18] {key} done at {time.perf_counter() - t_phase:.1f} s")
+    say(f"[18] done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3116,6 +3536,7 @@ def main() -> int:
     phase_general(device, card, bowl["bowl"])
     family = phase_family(device, card)
     prod = phase_production(device, card)
+    slice18 = phase_slice(device, card)
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
     # from phase [11], K3 from phase [12] (HITU for focused, the headline
@@ -3203,6 +3624,12 @@ def main() -> int:
         kernels.append(entry(f"stage_apply {kind} {k2['coeff']} p={run['degree']} (K2), PH1 "
                              f"SC{sc}-BM{bm} {k2['gdims']}", "stage.cu",
                              "fenicsxfus_tpu/ops/pallas_stage_v3.py:442", run["launches"], k2))
+    # K1 at each degree of operator_speed ([18b]): about 38.3M DOF, constant
+    # coefficient, launches in that phase's K1 rows
+    for degree, m in slice18["operator"]["k1"].items():
+        kernels.append(entry(f"stiffness_apply (K1) p={degree} const, operator_speed {m['gdims']}",
+                             "stiffness.cu", "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                             m["launches"], m))
     say(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

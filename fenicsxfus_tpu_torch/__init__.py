@@ -35,8 +35,11 @@ geometry library (``native/``), XDMF/HDF5 I/O (``io/xdmf.py``), and the
 production drivers: every HITU variant (``drivers/hitu.py``, the 1.1 MHz
 reference-scale run and ``check_artifact``), the PH1 transcranial suite
 (``drivers/ph1.py``), the harmonic analysis (``drivers/harmonics.py``) and the
-fp32 drift tool (``tools/fp32_drift.py``). Entry points run on the card unless
-the caller asks for the CPU (``device="cpu"``).
+fp32 drift tool (``tools/fp32_drift.py``), and the JAX package's scripts: the
+examples (``examples/``), the experiments (``experiments/``), MENDOUSSE
+(``drivers/mendousse.py``) and the speed tools (``tools/operator_speed.py``,
+``stage_attrib.py``, ``solver_speed.py``, ``hybrid_speed.py``). Entry points
+run on the card unless the caller asks for the CPU (``device="cpu"``).
 """
 
 from .core.bowl import bowl_cap_area, create_bowl_box  # noqa: F401

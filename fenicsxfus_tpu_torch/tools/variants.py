@@ -74,6 +74,15 @@ def device_ms(fn, runs: int = 10, cycles: int = 4_000_000) -> float:
     return float(np.median(ts))
 
 
+def card_ms(fn, device) -> dict:
+    """{"ms": ``median_ms``, "device_ms": ``device_ms``} of ``fn`` on a CUDA
+    ``device``; on the CPU both are None (not measured: no CPU time stands
+    for the card's)."""
+    if device.type != "cuda":
+        return {"ms": None, "device_ms": None}
+    return {"ms": median_ms(fn), "device_ms": device_ms(fn)}
+
+
 def ptxas_lines(log: str, entries) -> list:
     """The register and spill lines of ptxas for the kernels whose mangled
     names contain one of ``entries``, each after the start of that name."""

@@ -152,6 +152,16 @@ def test_unsupported_meshes_raise():
 
 
 def test_port_imports_no_jax():
+    """Importing the port (with every example, experiment, MENDOUSSE and the
+    speed tools) and ``chip_smoke.py`` imports no jax, nothing of the JAX
+    package and nothing of ``examples/``, ``experiments/`` or
+    ``benchmarks/``."""
+    scripts = sorted(f"fenicsxfus_tpu_torch.{sub}.{f.stem}"
+                     for sub in ("examples", "experiments")
+                     for f in (REPO / "fenicsxfus_tpu_torch" / sub).glob("[!_]*.py"))
+    assert len(scripts) == 27
+    tools = ", ".join(f"fenicsxfus_tpu_torch.tools.{t}" for t in (
+        "operator_speed", "solver_speed", "stage_attrib", "hybrid_speed", "bounds"))
     code = (
         "import sys; import fenicsxfus_tpu_torch, fenicsxfus_tpu_torch.convert, "
         "fenicsxfus_tpu_torch._build, fenicsxfus_tpu_torch.analysis.error, "
@@ -160,8 +170,11 @@ def test_port_imports_no_jax():
         "fenicsxfus_tpu_torch.models.focused, fenicsxfus_tpu_torch.drivers.hitu, "
         "fenicsxfus_tpu_torch.ops.stage_ab, fenicsxfus_tpu_torch.ops.step_wave, "
         "fenicsxfus_tpu_torch.ops.cg, fenicsxfus_tpu_torch.core.conn, "
-        "fenicsxfus_tpu_torch.tools.unstructured_solve, chip_smoke; "
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
+        "fenicsxfus_tpu_torch.tools.unstructured_solve, chip_smoke, "
+        f"fenicsxfus_tpu_torch.drivers.mendousse, {tools}, {', '.join(scripts)}; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'fenicsxfus_tpu', 'examples', 'experiments', 'benchmarks')]; "
+        "assert not bad, sorted(bad)"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
