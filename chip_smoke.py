@@ -103,7 +103,7 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    held against the plain path the same way; and the reference gates'
    problems (1D linear and lossy implicit (4,4), linear explicit (4,4),
    the 2D channel (41,6), the implicit 3D channel (41,1,1) through K1) over
-   the first quarter of each horizon on the card, held against the same
+   the first eighth of each horizon on the card, held against the same
    run on the CPU (the analytical gates at the full horizon are the CPU
    tests');
 15. the general per-cell path (no kernel: gather, per-cell products and a
@@ -119,7 +119,7 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    apply (1e-5), the fold twice bit for bit, and gather, both cell routes,
    ``K_ref``, both folds and the whole apply timed beside their floors;
    then HITU W-H101-WATER on the bowl mesh with ``FUS_HYBRID=0`` (every
-   step on the general path, no kernel launched) over the first quarter of
+   step on the general path, no kernel launched) over the first eighth of
    the run's time, its peak held against the hybrid path's over the same
    time (1e-4);
 16. the rest of the model family (no new kernel: K1 is the only one on
@@ -138,7 +138,7 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    ``create_box((54,)*3)``, 5 RK4 steps, its operators timed beside their
    floors; K1 at each of these shapes against its plain version; and the
    CPU tests' gates of these models on the card (Newmark, the adaptive
-   models and ``LinearExplicit`` in 1D over the first quarter of each
+   models and ``LinearExplicit`` in 1D over the first eighth of each
    horizon, held against the CPU's run);
 17. this slice's production runs, each through its driver at full width,
    held against the JAX package's committed run (focal peak within 2% and
@@ -159,7 +159,8 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    SC2-BM7 (p = 5, 22,334,096 DOF), each sensor read at its nearest node
    as in the committed runs; (e) ``tools/fp32_drift.py``, linear and
    Westervelt, fp32 beside fp64 to 8000 steps, with the gates of
-   ``tests/test_fp32_drift.py``.
+   ``tests/test_fp32_drift.py``: two side jobs, each in its own process,
+   that run with [18a] and are reported after it (``SIDE_JOBS``).
 
 18. this slice's scripts on the card: (a) every ported example and
    experiment and MENDOUSSE (``--quick``) through its ``main`` at the
@@ -181,6 +182,35 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    ``tools/solver_speed.py`` for the linear, lossy and Westervelt models at
    417³, 101 steps, then 3 more steps against ``stage_plain``; (e) ``tools/hybrid_speed.py`` (lattice, hybrid, band at
    the H101 bowl mesh, nx = 80).
+
+19. this slice's benchmark scripts on the card, each through its ``main``
+   at the script's default width and held against its plain path: (a)
+   ``tools/setup_speed.py`` (the headline's host setup, 72.5M DOF, phase by
+   phase) twice in this process and once in a fresh one, with each phase's
+   spread; (b) ``tools/phase_breakdown.py`` (417³: the RK4 step, the stage,
+   K1 alone, the pointwise pass and the unfused step for the linear, lossy
+   and Westervelt models), fused against unfused after 3 steps, K2 on each
+   model's operands and K1 against their plain versions; (c)
+   ``tools/wave_attrib.py`` (417³, ``FUS_STEP_WAVE=1``: K3 chained, the
+   model's step through its loop and a plain loop, four K2), K3 against its
+   plain version on the model's operands and against four K2; (d)
+   ``tools/unstructured_speed.py`` (the shuffled, reordered distorted box at
+   nx = 28, 1.44M DOF, with the segment-sum oracle and the CSR fold), its
+   parts held together before they are timed, K1 of its lattice row against
+   its plain version; (e) ``tools/unstructured_trace.py`` (nx = 24, the
+   general path, a ``torch.profiler`` window), no kernel; (f)
+   ``tools/bowl_blend_sweep.py``: the 4 × 3 grid at nx = 16 and two points at
+   nx = 64 (a depth cut: every point builds a bowl mesh on the host), K1 at
+   the nx = 64 lattice against its plain version; (g)
+   ``tools/bowl_spectrum.py`` (H101 nx = 64, the band's per-cell power
+   iteration in fp64), no kernel; (h) ``drivers/ph1_sc1_bm1.py`` (241³,
+   14.0M DOF, 3840 RK4 steps of ``LinearSpectralS2`` at cfl 0.5, K1 4 times
+   a step), K1 and 3 steps against the plain path; (i)
+   ``drivers/bowl_convergence.py`` (H101 bowl mesh at 200 kHz, nx = 20, 28,
+   36, fp64; three side jobs that run with [18a]), each O'Neil error within
+   1e-6 of the JAX package's fp64 run, then fp64 K2 with its band and fp64
+   K1 at nx = 36 against their plain versions. Kernels held against their plain versions inside a phase do
+   not count as its launches.
 
 Each phase prints its wall time. Every kernel wrapper counts its launches;
 the counts are set to 0 just before a main path runs and read just after.
@@ -204,8 +234,8 @@ import numpy as np
 
 # the bounds of every timed call (H100 peaks; fenicsxfus_tpu_torch/tools/bounds.py)
 from fenicsxfus_tpu_torch.tools.bounds import (  # noqa: F401
-    FP32_FLOP_PER_S, FP64_FLOP_PER_S, HBM_BYTES_PER_S, STAGE_NODE_FLOPS, floor_ms, nbytes,
-    share_text, stage_floor, stencil_flops,
+    FP32_FLOP_PER_S, FP64_FLOP_PER_S, HBM_BYTES_PER_S, STAGE_NODE_FLOPS, floor_ms, general_bounds,
+    nbytes, share_text, stage_floor, stencil_flops,
 )
 
 ROOT = Path(__file__).resolve().parent
@@ -1820,8 +1850,8 @@ def phase_implicit_bowl(device) -> None:
 # analytical gates at the full horizon are the CPU tests'
 # (tests/test_torch_implicit.py, tests/test_torch_experimental_gates.py). A
 # depth cut: at the full horizon they took about 220 s of the script's time
-# limit.
-GATE_DEPTH = 0.25
+# limit, at a quarter 96 s; an eighth leaves room for [19].
+GATE_DEPTH = 0.125
 
 
 def card_against_cpu(tag, name, make, march, tend, gate, device) -> dict:
@@ -1940,29 +1970,6 @@ def assert_no_tf32() -> None:
         raise AssertionError("torch.backends.cuda.matmul.allow_tf32 is not False")
     if torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("torch.get_float32_matmul_precision() is not 'highest'")
-
-
-def general_bounds(ops) -> dict:
-    """The floor of each part of a general apply of one field on ``ops``
-    (fp32): bytes read once and written once at 3.35 TB/s, or operations
-    at 67 TFLOP/s, whichever is larger. The index maps count as input."""
-    nc, nd, n, nf = ops.num_cells, ops.N**ops.d, ops.N, ops.ndofs  # 3D: N^3 nodes = points
-    f, i4, i8 = 4, 4, 8
-    cells = f * nc * nd
-    g_bytes = f * 6 * nc * nd
-    tf = 3 * (1 + 2 * 2) * nc * nd  # the symmetric-G transform: 3 rows of mul, fma, fma
-    dense_ops = 2 * (2 * nc * nd * 3 * nd) + tf
-    sum_ops = 2 * 3 * 2 * n * nc * nd + tf
-    return {
-        "gather": floor_ms(f * nf + i4 * nc * nd, cells, 0),
-        "dense": floor_ms(cells + g_bytes + f * 3 * nd * nd, cells, dense_ops),
-        "sum-factorised": floor_ms(cells + g_bytes, cells, sum_ops),
-        "K_ref": floor_ms(cells + f * nd * nd, cells, 2 * nc * nd * nd),
-        "scatter": floor_ms(cells + i4 * nc * nd + i8 * nf, f * nf, nc * nd),
-        "scatter_segsum": floor_ms(cells + i8 * nc * nd + i8 * nf, f * nf, nc * nd),
-        "apply": floor_ms(f * nf + i4 * nc * nd + f * nc + g_bytes + i4 * nc * nd + i8 * nf,
-                          f * nf, dense_ops),
-    }
 
 
 def phase_general_solve(device, card) -> dict:
@@ -2101,10 +2108,11 @@ def phase_general_ops(device, card, ops32, ops64) -> dict:
     return times
 
 
-# [15](c) runs the first quarter of the bowl run's time on the general path
+# [15](c) runs the first eighth of the bowl run's time on the general path
 # and on the hybrid path (the whole run and the bowl O'Neil check on the
-# general path took 130-140 s of the script's time limit)
-BOWL_GENERAL_DEPTH = 0.25
+# general path took 130-140 s of the script's time limit, a quarter 44 s;
+# an eighth leaves room for [19])
+BOWL_GENERAL_DEPTH = 0.125
 
 
 def phase_general_bowl(device, card, hybrid: dict) -> dict:
@@ -2727,7 +2735,8 @@ def k2_on_model(model, card, tag) -> dict:
     step from its state through ``model.fused_step(stage_fn=probe)``, where
     ``probe`` runs ``stage_apply`` and ``stage_plain`` on each stage's
     operands (the model's lattice, packed coefficients, dense and facet
-    vectors, and the stage fields), holds them together (TOL) and times the
+    vectors, the stage fields and, on a hybrid lattice, the band), holds
+    them together (TOL; TOL64 in fp64) and times the
     first non-final stage and the final one beside their bounds. Returns
     those two stages' numbers by "non-final" and "final"."""
     import torch
@@ -2737,17 +2746,20 @@ def k2_on_model(model, card, tag) -> dict:
 
     out = {}
 
-    def probe(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final):
+    def probe(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final, band=None):
         args = dict(kind=kind, u0=u0, v0=v0, kvp=kvp, kvpp=kvpp, prev=prev, Fs=Fs, dense=dense,
                     facets=facets, scal=scal, p=p, final=final)
+        if band is not None:
+            args["band"] = band
         got, ref = stage_apply(**args), stage_plain(**args)
         torch.cuda.synchronize()
         worst = max(rel_err(a, b) for a, b in (zip(got, ref) if final else [(got, ref)]))
         stage = "final" if final else "non-final"
         coeff = "DG-0" if any(F["F0"].shape[0] > 1 for F in Fs) else "const"
-        if not worst[0] <= TOL:
+        gate = TOL64 if u0.dtype == torch.float64 else TOL
+        if not worst[0] <= gate:
             raise AssertionError(f"{tag} K2 {kind} {stage} disagrees with its plain version: "
-                                 f"{worst[0]:.3e} > {TOL}")
+                                 f"{worst[0]:.3e} > {gate}")
         if stage not in out:
             del ref
             ms = cuda_median_ms(lambda: stage_apply(**args))
@@ -2981,28 +2993,115 @@ def phase_ph1(device, card) -> dict:
     return out
 
 
-def phase_drift(device) -> dict:
+# Launch-bound card runs that hold no timing: [17e]'s two fp32-drift runs
+# and [19i]'s three convergence runs run as side jobs, each in its own
+# process, while [18a] runs (the scripts are launch-bound too, and no
+# timed tool runs until the side jobs have ended).
+SIDE_JOBS = ("drift:linear", "drift:westervelt", "convergence:20", "convergence:28",
+             "convergence:36")
+
+
+def side_worker(job: str, path: str) -> None:
+    """One side job in its own process (``python -c "import chip_smoke;
+    chip_smoke.side_worker(job, path)"``): ``fp32_drift.drift`` of a kind
+    to 8000 steps, or ``bowl_convergence.main`` at one nx, on the card, with
+    the launch counts from 0 just before it and read just after; the result,
+    seconds and counts saved as JSON to ``path`` (written under another
+    name, then renamed into place)."""
+    import torch
+
+    what, arg = job.split(":")
+    torch.set_num_threads(1)  # five side jobs share the host with [18a]
+    reset_counts()
+    t0 = time.perf_counter()
+    if what == "drift":
+        from fenicsxfus_tpu_torch.tools import fp32_drift
+
+        out = {"rows": fp32_drift.drift(8000, arg, "cuda")[0]}
+    else:
+        from fenicsxfus_tpu_torch.drivers import bowl_convergence
+
+        out = {"res": bowl_convergence.main(nx=arg, device="cuda")}
+    torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0, launches=counts())
+    Path(path + ".part").write_text(json.dumps(out))
+    os.replace(path + ".part", path)
+
+
+class SideJobs:
+    """``SIDE_JOBS``, one process each (``side_worker``), started on entry
+    and ended (killed if still running) on exit; ``wait()`` waits for all of
+    them and raises if one failed; ``result(job)`` is its saved result."""
+
+    def __init__(self, jobs=SIDE_JOBS):
+        self.jobs, self.results = jobs, {}
+
+    def __enter__(self):
+        import tempfile
+
+        self.tmp = tempfile.TemporaryDirectory()
+        self.procs = {}
+        for job in self.jobs:
+            name = job.replace(":", "_")
+            log = open(os.path.join(self.tmp.name, name + ".log"), "w")
+            path = os.path.join(self.tmp.name, name + ".json")
+            proc = subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.side_worker({job!r}, "
+                 f"{path!r})"], cwd=ROOT, stdout=subprocess.DEVNULL, stderr=log,
+                env={**os.environ, "OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1",
+                     "MKL_NUM_THREADS": "1"})
+            self.procs[job] = (proc, log, path)
+        return self
+
+    def wait(self, timeout: float = 900.0) -> None:
+        t0 = time.perf_counter()
+        for job, (proc, log, path) in self.procs.items():
+            rc = proc.wait(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
+            log.flush()
+            if rc != 0 or not os.path.exists(path):
+                with open(log.name) as f:
+                    raise RuntimeError(f"side job {job} failed (exit {rc}):\n{f.read()[-3000:]}")
+            self.results[job] = json.loads(Path(path).read_text())
+
+    def result(self, job: str) -> dict:
+        return self.results[job]
+
+    def __exit__(self, *exc):
+        for proc, log, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+        self.tmp.cleanup()
+        return False
+
+
+def phase_drift(side: SideJobs, device) -> dict:
     """[17e] ``tools/fp32_drift.py`` on the card, linear and Westervelt, to
-    8000 steps, with ``tests/test_fp32_drift.py``'s gates, beside the JAX
-    package's committed tables."""
+    8000 steps (the side jobs ``drift:linear`` and ``drift:westervelt``),
+    with ``tests/test_fp32_drift.py``'s gates, beside the JAX package's
+    committed tables; no kernel (a 2D lattice)."""
     import torch
 
     from fenicsxfus_tpu_torch.tools import fp32_drift
 
     out = {}
     for kind, table in (("linear", "fp32_drift.txt"), ("westervelt", "fp32_drift_westervelt.txt")):
-        t0 = time.perf_counter()
-        rows, _, _ = fp32_drift.drift(8000, kind, device)
-        seconds = time.perf_counter() - t0
+        res = side.result(f"drift:{kind}")
+        rows, seconds = [tuple(r) for r in res["rows"]], res["seconds"]
         ref = np.loadtxt(ROOT / "benchmarks" / table)
-        say(f"[17e] fp32 drift, {kind} ({seconds:.1f} s, {torch.cuda.get_device_name(device)}): "
-            "steps, drift_l2, drift_max, err fp64, err fp32 | the JAX package's table")
+        say(f"[17e] fp32 drift, {kind} ({seconds:.1f} s in a side process, "
+            f"{torch.cuda.get_device_name(device)}): steps, drift_l2, drift_max, err fp64, err "
+            "fp32 | the JAX package's table")
         for r, j in zip(rows, ref):
             say(f"[17e]   {r[0]:5d}  {r[1]:.4e}  {r[2]:.4e}  {r[3]:.4e}  {r[4]:.4e} | "
                 f"{int(j[0]):5d}  {j[1]:.4e}  {j[2]:.4e}  {j[3]:.4e}  {j[4]:.4e}")
         fails = fp32_drift.gates(rows, kind)
         if fails:
             raise AssertionError(f"[17e] {kind} drift gates fail: {fails}")
+        c = res["launches"]
+        if c["K1"] or any(c[k] for k in ("K4a", "K4b") + STAGE_KERNELS):
+            raise AssertionError(f"[17e] {kind}: a kernel ran on the 2D lattice: {c}")
         out[kind] = {"drift_l2": {r[0]: r[1] for r in rows}, "seconds": seconds}
     say("[17e] drift gates hold: drift_l2 < 1e-4 from 7488 steps on (both), err32 < 2 err64 "
         "(linear)")
@@ -3011,7 +3110,7 @@ def phase_drift(device) -> dict:
 
 def phase_production(device, card) -> dict:
     """[17]: (a) native geometry, (b) the 1.1 MHz run, (c) the other HITU
-    variants, (d) PH1, (e) fp32 drift."""
+    variants, (d) PH1; (e), fp32 drift, runs as side jobs during [18a]."""
     t_phase = time.perf_counter()
     out = {"native": phase_native(card)}
     say(f"[17a] done at {time.perf_counter() - t_phase:.1f} s")
@@ -3021,7 +3120,6 @@ def phase_production(device, card) -> dict:
     say(f"[17c] done at {time.perf_counter() - t_phase:.1f} s")
     out["ph1"] = phase_ph1(device, card)
     say(f"[17d] done at {time.perf_counter() - t_phase:.1f} s")
-    out["drift"] = phase_drift(device)
     say(f"[17] done in {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -3478,9 +3576,10 @@ def phase_hybrid_speed(device, card) -> dict:
     return res
 
 
-def phase_slice(device, card) -> dict:
-    """[18]: (a) the examples, experiments and MENDOUSSE, (b) operator_speed,
-    (c) stage_attrib, (d) solver_speed, (e) hybrid_speed."""
+def phase_slice(device, card, side: SideJobs) -> dict:
+    """[18]: (a) the examples, experiments and MENDOUSSE, while the side jobs
+    run; then, once they have ended, [17e]'s report; (b) operator_speed, (c)
+    stage_attrib, (d) solver_speed, (e) hybrid_speed."""
     import torch
 
     t_phase = time.perf_counter()
@@ -3491,7 +3590,381 @@ def phase_slice(device, card) -> dict:
         out[key] = fn(device, card)
         torch.cuda.empty_cache()
         say(f"[18] {key} done at {time.perf_counter() - t_phase:.1f} s")
+        if key == "scripts":
+            side.wait()
+            say(f"[18] the side jobs ended at {time.perf_counter() - t_phase:.1f} s")
+            out["drift"] = phase_drift(side, device)
     say(f"[18] done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ------------------------------------------------------- [19] the benchmark scripts
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made in the block (a kernel held against its plain version)
+    do not count: after it every launch count is what it was before it."""
+    from fenicsxfus_tpu_torch.ops import stage, stage_ab, step_wave, stiffness
+
+    saved = counts()
+    try:
+        yield
+    finally:
+        stiffness.stiffness_apply.launches = saved["K1"]
+        stiffness.stiffness_axis0_apply.launches = saved["K4a"]
+        stiffness.stiffness_axes12_apply.launches = saved["K4b"]
+        for counter, key in ((stage.stage_apply.launches, "K2"),
+                             (stage.stage_apply.band_launches, "K2+band"),
+                             (stage_ab.stage_a_apply.launches, "K5a"),
+                             (stage_ab.stage_b_apply.launches, "K5b"),
+                             (step_wave.step_wave_apply.launches, "K3")):
+            counter.clear()
+            counter.update(saved[key])
+
+
+def k1_lattice(grid, dtype, card, tag) -> dict:
+    """K1 (p = 4, one field, constant coefficient) on ``grid`` cells of a
+    seeded random field against its plain version (TOL, TOL64 in fp64):
+    error, CUDA-event times and the bound."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.stiffness import pack_const, stiffness_apply, stiffness_plain
+
+    lat = _lattice(grid, 4, dtype)
+    dev = torch.device("cuda", 0)
+    x = torch.randn(lat.gdims, generator=torch.Generator(device=dev).manual_seed(19),
+                    device=dev, dtype=dtype)
+    F = pack_const(lat, 1.0, dev)
+    rel, err = rel_err(stiffness_apply([x], [F], 4), stiffness_plain([x], [F], 4))
+    ms = cuda_median_ms(lambda: stiffness_apply([x], [F], 4))
+    pms = cuda_median_ms(lambda: stiffness_plain([x], [F], 4))
+    rate = FP64_FLOP_PER_S if dtype == torch.float64 else FP32_FLOP_PER_S
+    bound = floor_ms(nbytes(x, F), nbytes(x), stencil_flops(lat.gdims, 4, 1, (0, 1, 2)), rate)
+    say(f"{tag} K1 {str(dtype).split('.')[-1]} at {lat.gdims}: max|dy|/max|y| = {rel:.3e}; "
+        f"kernel {ms:.3f} ms, plain {pms:.3f} ms, {share_text(bound, ms)} (median of 10, CUDA "
+        f"events; {card})")
+    if not rel <= (TOL64 if dtype == torch.float64 else TOL):
+        raise AssertionError(f"{tag} K1 disagrees with its plain version: {rel:.3e}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "gdims": lat.gdims, **bound}
+
+
+def no_stage_kernel(tag, launches) -> None:
+    """Raise if the counts ``launches`` show a kernel other than K1."""
+    if any(launches[k] for k in ("K4a", "K4b") + STAGE_KERNELS):
+        raise AssertionError(f"{tag} a kernel other than K1 ran: {launches}")
+
+
+def phase_setup_speed(device, card) -> dict:
+    """[19a] ``tools/setup_speed.py`` at its defaults (104³ cells, p = 4,
+    72,511,713 DOF): twice in this process, then once as a file in a fresh
+    process (its imports include torch); each phase's spread over the
+    three."""
+    import tempfile
+
+    import torch
+
+    from fenicsxfus_tpu_torch.tools import setup_speed
+
+    runs = []
+    for _ in range(2):
+        runs.append(dict(setup_speed.main(device=device)["rows"]))
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "setup.json"
+        proc = subprocess.run([sys.executable, str(ROOT / "fenicsxfus_tpu_torch" / "tools" /
+                                                   "setup_speed.py"), "--out", str(out)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"[19a] setup_speed.py in a fresh process failed:\n"
+                                 f"{proc.stderr[-2000:]}")
+        runs.append(dict(json.loads(out.read_text())["rows"]))
+    for name in setup_speed.PHASES + ("total",):
+        ts = [sum(r.values()) if name == "total" else r[name] for r in runs]
+        say(f"[19a] setup {name}: {' / '.join(f'{t:.3f}' for t in ts)} s (in process, in "
+            f"process, fresh process); max/min {max(ts) / max(min(ts), 1e-9):.2f}")
+    return {"runs": runs}
+
+
+def phase_phase_breakdown(device, card) -> dict:
+    """[19b] ``tools/phase_breakdown.py`` at 417³ (its default), linear,
+    lossy and Westervelt, each model built once, the fused step's slope
+    over 10 and 20 steps (the script's default 20 and 40: a depth cut): the
+    rows beside their bounds, the fused step held against the unfused one
+    (1e-4) after 3 steps from the reached state; on each model, K2 against
+    its plain version on the model's own operands (``k2_on_model``), and
+    for the linear one K1 with its coefficient (``k1_on_model``),
+    uncounted."""
+    from fenicsxfus_tpu_torch.tools import phase_breakdown
+
+    held = {}
+
+    def hold(kind, model):
+        held[kind] = {"launches": counts()}
+        with uncounted():
+            held[kind]["k2"] = k2_on_model(model, card, f"[19b] {kind} at 417³:")
+            if kind == "linear":
+                held[kind]["k1"] = k1_on_model(model, type(model).STIFF_KEYS, card,
+                                               "[19b] linear at 417³:")
+        reset_counts()
+
+    reset_counts()
+    res = phase_breakdown.main(device=device, steps=10, hold=hold)
+    for kind, r in res.items():
+        c = held[kind]["launches"]
+        k2 = c["K2"].get(kind, 0)
+        say(f"[19b] {kind}: " + ", ".join(
+            f"{name} {'not measured' if v['ms'] is None else format(v['ms'], '.3f')} ms (share "
+            f"{'-' if v['share'] is None else format(v['share'], '.3f')})"
+            for name, v in r["rows"].items())
+            + f"; fused vs unfused {r['held']:.3e}; launches K2 {k2}, K1 {c['K1']} ({card})")
+        if not r["held"] <= 1e-4:
+            raise AssertionError(f"[19b] {kind}: fused and unfused steps disagree: {r['held']:.3e}")
+        if not (k2 and k2 % 4 == 0 and c["K1"]) or set(c["K2"]) != {kind}:
+            raise AssertionError(f"[19b] {kind}: unexpected launches {c}")
+        r["launches"] = c
+    return {"rows": res, "held": held}
+
+
+def phase_wave_attrib(device, card) -> dict:
+    """[19c] ``tools/wave_attrib.py`` at its defaults (417³, linear, under
+    ``FUS_STEP_WAVE=1``): K3 chained, the model's step through its loop and
+    through a plain loop, and four K2; K3 against its plain version on the
+    model's own operands and first step table (uncounted), timed beside its
+    bound; K3 against four K2 after 10 steps."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.step_wave import (
+        step_wave_apply, step_wave_check, step_wave_plain,
+    )
+    from fenicsxfus_tpu_torch.tools import wave_attrib
+
+    k3 = {}
+
+    def hold(model, args):
+        with uncounted():
+            got, ref = step_wave_apply(**args), step_wave_plain(**args)
+            step_wave_check()
+            rel, err = max(rel_err(a, b) for a, b in zip(got, ref))
+            del got, ref
+            ms = cuda_median_ms(lambda: step_wave_apply(**args))
+            pms = cuda_median_ms(lambda: step_wave_plain(**args))
+            step_wave_check()
+            bound = wave_floor(args)
+            say(f"[19c] K3 linear at {tuple(args['u0'].shape)}, the model's operands: max|d|/"
+                f"max|ref| = {rel:.3e}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                f"{share_text(bound, ms)} (median of 10, CUDA events; {card})")
+            if not rel <= TOL:
+                raise AssertionError(f"[19c] K3 disagrees with its plain version: {rel:.3e}")
+            k3.update(max_abs_err=err, ms=ms, plain_ms=pms, **bound)
+
+    reset_counts()
+    res = wave_attrib.main(device=device, hold=hold)
+    torch.cuda.synchronize()
+    launches = counts()
+    say(f"[19c] K3 against four K2 after {res['chain']} steps: {res['k3_vs_k2']:.3e}; launches "
+        f"K3 {launches['K3']}, K2 {launches['K2']} ({card})")
+    if not (res["k3_vs_k2"] <= TOL and launches["K3"].get("linear") and launches["K2"]):
+        raise AssertionError(f"[19c] K3 and four K2: {res['k3_vs_k2']:.3e}, {launches}")
+    return {**res, "k3": k3, "launches": launches}
+
+
+def phase_unstructured_speed(device, card) -> dict:
+    """[19d] ``tools/unstructured_speed.py`` at nx = 28, p = 4 (1,442,897
+    DOF) with ``shuffle``, ``reorder`` and ``with_segsum``: the cell routes,
+    the fold, the segment sum, the CSR fold and the apply against the
+    oracle held together (1e-5) before the parts are timed; K1 (the lattice
+    row) the only kernel, then held against its plain version at 113³."""
+    import torch
+
+    from fenicsxfus_tpu_torch.tools import unstructured_speed
+
+    assert_no_tf32()
+    reset_counts()
+    res = unstructured_speed.main(nx=28, with_segsum=True, shuffle=True, reorder=True,
+                                  device=device)
+    launches = counts()
+    no_stage_kernel("[19d]", launches)
+    worst = max(res["held"].values())
+    say(f"[19d] {res['ndofs']} DOF, {res['num_cells']} cells: parts held together, worst "
+        f"{worst:.3e} (gate 1e-5); apply / K1 per DOF {res['ratio']:.3f}; K1 launches "
+        f"{launches['K1']} ({card})")
+    if not (worst <= 1e-5 and launches["K1"]):
+        raise AssertionError(f"[19d] held {res['held']}, launches {launches}")
+    with uncounted():
+        k1 = k1_lattice((28, 28, 28), torch.float32, card, "[19d] lattice row:")
+    return {**res, "k1": {**k1, "launches": launches["K1"]}}
+
+
+def phase_unstructured_trace(device, card) -> dict:
+    """[19e] ``tools/unstructured_trace.py`` at its defaults (nx = 24,
+    912,673 DOF, 6 steps a window): the general path, no kernel; the
+    profiled window's device operations."""
+    import torch
+
+    from fenicsxfus_tpu_torch.tools import unstructured_trace
+
+    reset_counts()
+    res = unstructured_trace.main(device=device)
+    launches = counts()
+    no_stage_kernel("[19e]", launches)
+    u = res.pop("u")
+    say(f"[19e] {res['ndofs']} DOF, {res['step_kind']} step: {res['ms_step']:.3f} ms a step, "
+        f"{res['rate']:.4f} GDOF-RK4-steps/s; device busy {res['busy_ms']:.3f} of "
+        f"{res['profiled_wall_ms']:.3f} ms profiled; K1 launches {launches['K1']} ({card})")
+    if launches["K1"] or res["step_kind"] != "unfused" or not res["ops"]:
+        raise AssertionError(f"[19e] expected the general path without kernels: {launches}")
+    if not (bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0):
+        raise AssertionError("[19e] the state is not finite and nonzero")
+    return res
+
+
+# the blend sweep's whole grid at a coarser mesh, and two of its points at
+# the script's default nx = 64 (each point builds a bowl mesh and its
+# hybrid operators on the host)
+SWEEP_COARSE_NX, SWEEP_NX = 16, 64
+SWEEP_POINTS = {"blends": "2,5", "holds": "0.25"}
+
+
+def phase_blend_sweep(device, card) -> dict:
+    """[19f] ``tools/bowl_blend_sweep.py``: the 4 × 3 grid at nx = 16, then
+    blend 2 and 5 sags at hold 0.25 at nx = 64 ((64, 37, 37) cells,
+    5,705,657 DOF); K1 (+ K6) in ``estimate_stable_dt``, then K1 held
+    against its plain version at the nx = 64 lattice."""
+    import torch
+
+    from fenicsxfus_tpu_torch.tools import bowl_blend_sweep
+
+    out = {}
+    for nx, kw in ((SWEEP_COARSE_NX, {}), (SWEEP_NX, SWEEP_POINTS)):
+        reset_counts()
+        res = bowl_blend_sweep.main(nx=nx, device=device, **kw)
+        launches = counts()
+        no_stage_kernel("[19f]", launches)
+        built = [r for r in res["rows"] if "failed" not in r]
+        say(f"[19f] nx = {nx}: {len(built)} of {len(res['rows'])} points built, best "
+            f"{res['best'] and (res['best']['mb'], res['best']['mh'])}; K1 launches "
+            f"{launches['K1']} ({card})")
+        if not built or launches["K1"] != 41 * len(built):
+            raise AssertionError(f"[19f] nx = {nx}: {launches}")
+        if not all(np.isfinite(r["ratio"]) and r["ratio"] > 0 for r in built):
+            raise AssertionError("[19f] a dt ratio is not finite and positive")
+        out[nx] = {**res, "launches": launches["K1"]}
+    with uncounted():
+        k1 = k1_lattice((SWEEP_NX, 37, 37), torch.float32, card, "[19f] the nx = 64 bowl lattice:")
+    out["k1"] = {**k1, "launches": out[SWEEP_NX]["launches"]}
+    return out
+
+
+def phase_bowl_spectrum(device, card) -> dict:
+    """[19g] ``tools/bowl_spectrum.py`` at its defaults (H101, nx = 64):
+    the band cells' power iteration in fp64 on the card, no kernel."""
+    from fenicsxfus_tpu_torch.tools import bowl_spectrum
+
+    reset_counts()
+    res = bowl_spectrum.main(device=device)
+    launches = counts()
+    no_stage_kernel("[19g]", launches)
+    s = res["summary"]
+    say(f"[19g] {res['band_cells']} band cells: λ/λ_uniform max {s['max']:.4f}, p99 "
+        f"{s['p99']:.4f}, median {s['median']:.4f}, implied clamp {s['clamp']:.4f}; host and "
+        "device s " + ", ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items()) + f" ({card})")
+    if launches["K1"] or not all(np.isfinite(v) and v > 0 for v in s.values()):
+        raise AssertionError(f"[19g] {s}, {launches}")
+    return {k: v for k, v in res.items() if k != "rel"}
+
+
+def phase_sc1_bm1(device, card) -> dict:
+    """[19h] ``drivers/ph1_sc1_bm1.py`` at its defaults (nx = 60, 241³ =
+    13,997,521 DOF, two crossings at cfl 0.5: 3840 RK4 steps, fp32; the JAX
+    script's cfl 0.9 diverges): K1 4 times a step and no other
+    kernel; then K1 with the model's coefficient and 3 steps from a random
+    state held against the plain path (uncounted)."""
+    from fenicsxfus_tpu_torch.drivers import ph1_sc1_bm1
+
+    reset_counts()
+    res = ph1_sc1_bm1.main(device=device)
+    launches = counts()
+    no_stage_kernel("[19h]", launches)
+    eqn = res.pop("eqn")
+    say(f"[19h] {res['ndofs']} DOF, {res['nsteps']} RK4 steps: setup {res['setup_s']:.2f} s, "
+        f"solve {res['solve_s']:.3f} s, {res['rate']:.4f} GDOF-RK4-updates/s; K1 launches "
+        f"{launches['K1']}; axial |p| max {np.max(np.abs(res['values'])):.6e} Pa ({card})")
+    if launches["K1"] != 4 * res["nsteps"]:
+        raise AssertionError(f"[19h] expected K1 4 times a step: {launches}")
+    with uncounted():
+        k1 = k1_on_model(eqn, ("coeff_u",), card, "[19h] at 241³:")
+        explicit_against_plain(eqn, "[19h]")
+    return {**res, "k1": {**k1, "launches": launches["K1"], "gdims": eqn.ops.gdims}}
+
+
+CONVERGENCE_GATE = 1e-6  # the card's fp64 runs against the JAX package's, absolute
+
+
+def phase_bowl_convergence(device, card, side: SideJobs) -> dict:
+    """[19i] ``drivers/bowl_convergence.py`` at its defaults (H101 bowl mesh,
+    200 kHz, fp64), one side job a nx (20, 28, 36) run during [18a]: each
+    O'Neil error within 1e-6 of the JAX package's fp64 CPU run
+    (``drivers/bowl_convergence_jax.json``); K2 ``westervelt`` with its band
+    4 times a step, K1 (+ K6) 41 times a run for ``estimate_stable_dt``;
+    then, on the nx = 36 model from a seeded random state, K2 with its band
+    against its plain version and K1 fp64 at its lattice (uncounted)."""
+    import torch
+
+    from fenicsxfus_tpu_torch.drivers import hitu
+
+    rows, launches = [], {"K1": 0, "K2+band": 0, "other": 0}
+    for job in (j for j in side.jobs if j.startswith("convergence:")):
+        res, c = side.result(job)["res"], side.result(job)["launches"]
+        if res["dtype"] != "torch.float64":
+            raise AssertionError(f"[19i] {job} took {res['dtype']}, not float64")
+        band = c["K2+band"]
+        say(f"[19i] {job}: {side.result(job)['seconds']:.1f} s in a side process, launches {c} "
+            f"({card})")
+        if (set(band) != {"westervelt"} or band["westervelt"] % 4 or c["K1"] != 41
+                or any(c[k] for k in ("K2", "K4a", "K4b", "K5a", "K5b", "K3"))):
+            raise AssertionError(f"[19i] {job}: unexpected launches {c}")
+        launches["K1"] += c["K1"]
+        launches["K2+band"] += band["westervelt"]
+        rows += res["rows"]
+    for r in rows:
+        say(f"[19i] nx = {r['nx']}: gain {r['gain_err']:.12e}, position {r['pos_err']:.12e} m, "
+            f"focal L2 {r['profile_err']:.12e}; against the JAX package's run max |d| "
+            f"{r['held']:.3e} (gate {CONVERGENCE_GATE:g})")
+        if r["held"] is None or not r["held"] <= CONVERGENCE_GATE:
+            raise AssertionError(f"[19i] nx = {r['nx']} misses the JAX package's run")
+    with uncounted():
+        model, *_ = hitu.build_bowl_model("W", "H101", "WATER", rows[-1]["nx"], f0=200e3,
+                                          dtype=torch.float64, linear=True, device=device)
+        gen = torch.Generator(device=device).manual_seed(191)
+        n = model.number_of_dofs()
+        model.u_n = torch.randn(n, generator=gen, device=device, dtype=torch.float64)
+        model.v_n = torch.randn(n, generator=gen, device=device, dtype=torch.float64)
+        tag = f"[19i] nx = {rows[-1]['nx']}"
+        k2 = k2_on_model(model, card, f"{tag}, fp64:")["non-final"]
+        k1 = k1_lattice(model.mesh.grid_shape, torch.float64, card, f"{tag} lattice:")
+    return {"rows": rows, "launches": launches, "k2": {**k2, "launches": launches["K2+band"]},
+            "k1": {**k1, "launches": launches["K1"]}}
+
+
+def phase_bench(device, card, side: SideJobs) -> dict:
+    """[19]: (a) setup_speed, (b) phase_breakdown, (c) wave_attrib, (d)
+    unstructured_speed, (e) unstructured_trace, (f) bowl_blend_sweep, (g)
+    bowl_spectrum, (h) ph1_sc1_bm1, (i) bowl_convergence (run as side jobs
+    during [18a])."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    for key, fn in (("setup", phase_setup_speed), ("phase", phase_phase_breakdown),
+                    ("wave", phase_wave_attrib), ("unstructured", phase_unstructured_speed),
+                    ("trace", phase_unstructured_trace), ("sweep", phase_blend_sweep),
+                    ("spectrum", phase_bowl_spectrum), ("sc1_bm1", phase_sc1_bm1),
+                    ("convergence", lambda d, c: phase_bowl_convergence(d, c, side))):
+        out[key] = fn(device, card)
+        torch.cuda.empty_cache()
+        say(f"[19] {key} done at {time.perf_counter() - t_phase:.1f} s")
+    say(f"[19] done in {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3536,7 +4009,9 @@ def main() -> int:
     phase_general(device, card, bowl["bowl"])
     family = phase_family(device, card)
     prod = phase_production(device, card)
-    slice18 = phase_slice(device, card)
+    with SideJobs() as side:
+        slice18 = phase_slice(device, card, side)
+        bench = phase_bench(device, card, side)
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
     # from phase [11], K3 from phase [12] (HITU for focused, the headline
@@ -3630,6 +4105,35 @@ def main() -> int:
         kernels.append(entry(f"stiffness_apply (K1) p={degree} const, operator_speed {m['gdims']}",
                              "stiffness.cu", "fenicsxfus_tpu/ops/pallas_v3.py:276",
                              m["launches"], m))
+    # [19]: K2 of each kind and K1 at 417³ (phase_breakdown), K3 at 417³
+    # (wave_attrib), K1 at the unstructured box's lattice, at the nx = 64
+    # bowl lattice and on the S2 lattice 241³, and fp64 K2 with its band
+    # and fp64 K1 on the nx = 36 bowl mesh; launches in each script's run
+    pb = bench["phase"]
+    for kind in ("linear", "lossy", "westervelt"):
+        k2 = pb["held"][kind]["k2"]["non-final"]
+        kernels.append(entry(f"stage_apply {kind} {k2['coeff']} (K2), phase_breakdown "
+                             f"{k2['gdims']}", "stage.cu",
+                             "fenicsxfus_tpu/ops/pallas_stage_v3.py:442",
+                             pb["rows"][kind]["launches"]["K2"][kind], k2))
+    kernels.append(entry("stiffness_apply (K1), phase_breakdown linear (417, 417, 417)",
+                         "stiffness.cu", "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                         pb["rows"]["linear"]["launches"]["K1"], pb["held"]["linear"]["k1"]))
+    wa = bench["wave"]
+    kernels.append(entry(f"step_wave_apply linear (K3), wave_attrib {wa['gdims']}",
+                         "step_wave.cu", "fenicsxfus_tpu/ops/pallas_step_wave.py:624",
+                         wa["launches"]["K3"]["linear"], wa["k3"]))
+    for key, name in (("unstructured", "unstructured_speed lattice row"),
+                      ("sweep", "bowl_blend_sweep estimate_stable_dt"),
+                      ("sc1_bm1", "ph1_sc1_bm1 S2 unfused step"),
+                      ("convergence", "bowl_convergence estimate_stable_dt, fp64")):
+        m = bench[key]["k1"]
+        kernels.append(entry(f"stiffness_apply (K1), {name} {m['gdims']}", "stiffness.cu",
+                             "fenicsxfus_tpu/ops/pallas_v3.py:276", m["launches"], m))
+    k2 = bench["convergence"]["k2"]
+    kernels.append(entry(f"stage_apply westervelt +band fp64 (K2), bowl_convergence "
+                         f"{k2['gdims']}", "stage.cu", "fenicsxfus_tpu/ops/pallas_stage_v3.py:442",
+                         k2["launches"], k2))
     say(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -29,9 +29,12 @@ def device_dtype(device, dtype=None, cpu_dtype=torch.float64) -> tuple:
 def cli(main, description: str) -> dict:
     """Run ``main`` with its keyword arguments from the command line: one
     ``--name`` per parameter, typed by its default (a bool is a flag;
-    ``--dtype float32|float64``)."""
+    ``--dtype float32|float64``). Keyword-only parameters are for callers
+    in Python and have no flag."""
     ap = argparse.ArgumentParser(description=description)
     for name, par in inspect.signature(main).parameters.items():
+        if par.kind is par.KEYWORD_ONLY:
+            continue
         default = par.default
         if name == "dtype":
             ap.add_argument("--dtype", default=None, type=lambda s: getattr(torch, s))

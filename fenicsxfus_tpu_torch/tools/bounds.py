@@ -2,8 +2,9 @@
 move (each input read once, each output written once) over the H100's
 memory rate, or its operations over the peak rate of their type, whichever
 is larger. ``chip_smoke.py`` and the speed tools (``operator_speed.py``,
-``stage_attrib.py``, ``solver_speed.py``, ``hybrid_speed.py``) report every
-timing beside this bound and its share of it.
+``stage_attrib.py``, ``solver_speed.py``, ``hybrid_speed.py``,
+``phase_breakdown.py``, ``unstructured_speed.py``) report every timing beside
+this bound and its share of it.
 """
 
 from __future__ import annotations
@@ -84,3 +85,28 @@ def stage_floor(args: dict, kernel: str) -> dict:
     written = nbytes(u0) * (2 if args["final"] else 1)
     flops = stencil_flops(gd, p, nf, axes) + STAGE_NODE_FLOPS * nodes
     return floor_ms(read, written, flops + (0 if band is None else band.numel()))
+
+
+def general_bounds(ops) -> dict:
+    """The floor of each part of a general (per-cell) apply of one field on
+    ``ops`` in its dtype: bytes read once and written once, or operations
+    at the peak rate, whichever is larger. The index maps count as input."""
+    nc, nd, n, nf = ops.num_cells, ops.N**ops.d, ops.N, ops.ndofs  # 3D: N^3 nodes = points
+    f = np.dtype(str(ops.dtype).replace("torch.", "")).itemsize
+    rate = FP64_FLOP_PER_S if f == 8 else FP32_FLOP_PER_S
+    i4, i8 = 4, 8
+    cells = f * nc * nd
+    g_bytes = f * 6 * nc * nd
+    tf = 3 * (1 + 2 * 2) * nc * nd  # the symmetric-G transform: 3 rows of mul, fma, fma
+    dense_ops = 2 * (2 * nc * nd * 3 * nd) + tf
+    sum_ops = 2 * 3 * 2 * n * nc * nd + tf
+    return {
+        "gather": floor_ms(f * nf + i4 * nc * nd, cells, 0, rate),
+        "dense": floor_ms(cells + g_bytes + f * 3 * nd * nd, cells, dense_ops, rate),
+        "sum-factorised": floor_ms(cells + g_bytes, cells, sum_ops, rate),
+        "K_ref": floor_ms(cells + f * nd * nd, cells, 2 * nc * nd * nd, rate),
+        "scatter": floor_ms(cells + i4 * nc * nd + i8 * nf, f * nf, nc * nd, rate),
+        "scatter_segsum": floor_ms(cells + i8 * nc * nd + i8 * nf, f * nf, nc * nd, rate),
+        "apply": floor_ms(f * nf + i4 * nc * nd + f * nc + g_bytes + i4 * nc * nd + i8 * nf,
+                          f * nf, dense_ops, rate),
+    }

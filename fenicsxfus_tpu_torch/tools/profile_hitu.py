@@ -132,18 +132,25 @@ def main() -> None:
         model.rk_record(model.t, model.t + 10 * dt, pts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-    dev_total, rows = 0.0, []
+    rows, busy = device_ops(prof)
+    for d, k, c in rows[:8]:
+        print(f"  device {d:9.3f} ms  x{c:5d}  {k[:90]}")
+    print(f"profiled 10 steps: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
+          f"busy share {busy / (wall * 1e3):.3f}", flush=True)
+
+
+def device_ops(prof) -> tuple[list, float]:
+    """The device operations of a ``torch.profiler`` window, largest first:
+    ([(self device ms, name, calls)], their sum in ms)."""
+    rows = []
     for e in prof.key_averages():
         d = getattr(e, "self_device_time_total", None)
         if d is None:
             d = getattr(e, "self_cuda_time_total", 0.0)
         if d and e.device_type is not None and "CUDA" in str(e.device_type):
-            rows.append((d, e.key, e.count))
-            dev_total += d
-    for d, k, c in sorted(rows, reverse=True)[:8]:
-        print(f"  device {d / 1e3:9.3f} ms  x{c:5d}  {k[:90]}")
-    print(f"profiled 10 steps: wall {wall * 1e3:.2f} ms, device busy {dev_total / 1e3:.2f} ms, "
-          f"busy share {dev_total / 1e3 / (wall * 1e3):.3f}", flush=True)
+            rows.append((d / 1e3, e.key, e.count))
+    rows.sort(reverse=True)
+    return rows, sum(r[0] for r in rows)
 
 
 if __name__ == "__main__":

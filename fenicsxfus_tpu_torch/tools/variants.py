@@ -74,6 +74,34 @@ def device_ms(fn, runs: int = 10, cycles: int = 4_000_000) -> float:
     return float(np.median(ts))
 
 
+def best_ms(run, k: int, reps: int = 3, device=None):
+    """The least CUDA-event time of ``run(k)`` (which queues k chained
+    units of work and must not synchronize) over ``reps`` runs after one
+    warm-up: ms. None unless ``device`` is a CUDA device."""
+    import torch
+
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    run(k)
+    best = float("inf")
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(k)
+        b.record()
+        b.synchronize()
+        best = min(best, a.elapsed_time(b))
+    return best
+
+
+def slope_ms(run, n: int, reps: int = 3, device=None):
+    """ms a unit of work as the slope between ``best_ms`` of ``run(n)`` and
+    of ``run(2 * n)``, so that the fixed cost of a run (its first launch,
+    the loop's set-up) cancels. None unless ``device`` is a CUDA device."""
+    short = best_ms(run, n, reps, device)
+    return None if short is None else (best_ms(run, 2 * n, reps, device) - short) / n
+
+
 def card_ms(fn, device) -> dict:
     """{"ms": ``median_ms``, "device_ms": ``device_ms``} of ``fn`` on a CUDA
     ``device``; on the CPU both are None (not measured: no CPU time stands

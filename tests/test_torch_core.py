@@ -3,6 +3,7 @@ package: the copied numpy modules must give bit-identical meshes, tags,
 dofmaps, geometry factors and GLL tables, and the port must not import jax.
 """
 
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -152,8 +153,9 @@ def test_unsupported_meshes_raise():
 
 
 def test_port_imports_no_jax():
-    """Importing the port (with every example, experiment, MENDOUSSE and the
-    speed tools) and ``chip_smoke.py`` imports no jax, nothing of the JAX
+    """Importing the port (with every example, experiment, MENDOUSSE, the
+    speed and attribution tools and the PH1 SC1-BM1 and bowl convergence
+    drivers) and ``chip_smoke.py`` imports no jax, nothing of the JAX
     package and nothing of ``examples/``, ``experiments/`` or
     ``benchmarks/``."""
     scripts = sorted(f"fenicsxfus_tpu_torch.{sub}.{f.stem}"
@@ -161,7 +163,11 @@ def test_port_imports_no_jax():
                      for f in (REPO / "fenicsxfus_tpu_torch" / sub).glob("[!_]*.py"))
     assert len(scripts) == 27
     tools = ", ".join(f"fenicsxfus_tpu_torch.tools.{t}" for t in (
-        "operator_speed", "solver_speed", "stage_attrib", "hybrid_speed", "bounds"))
+        "operator_speed", "solver_speed", "stage_attrib", "hybrid_speed", "bounds",
+        "setup_speed", "phase_breakdown", "wave_attrib", "unstructured_speed",
+        "unstructured_trace", "bowl_blend_sweep", "bowl_spectrum"))
+    tools += ", " + ", ".join(f"fenicsxfus_tpu_torch.drivers.{d}"
+                              for d in ("ph1_sc1_bm1", "bowl_convergence"))
     code = (
         "import sys; import fenicsxfus_tpu_torch, fenicsxfus_tpu_torch.convert, "
         "fenicsxfus_tpu_torch._build, fenicsxfus_tpu_torch.analysis.error, "
@@ -206,6 +212,16 @@ ENTRY_POINTS = {
                                                       torch.float64), 1.0),
     "state_from_numpy": lambda: state_from_numpy(np.zeros(3), np.zeros(3)),
 }
+# the benchmark scripts' mains, each at a tiny size
+BENCH_MAINS = {"tools.setup_speed": dict(nx=2), "tools.phase_breakdown": dict(nx=2),
+               "tools.wave_attrib": dict(nx=2), "tools.unstructured_speed": dict(nx=2),
+               "tools.unstructured_trace": dict(nx=2), "tools.bowl_blend_sweep": dict(nx=4),
+               "tools.bowl_spectrum": dict(nx=4), "drivers.ph1_sc1_bm1": dict(nx=2),
+               "drivers.bowl_convergence": dict(nx="2")}
+ENTRY_POINTS.update({
+    name: (lambda name=name, kw=kw: importlib.import_module(
+        f"fenicsxfus_tpu_torch.{name}").main(**kw))
+    for name, kw in BENCH_MAINS.items()})
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
