@@ -190,7 +190,8 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    spread; (b) ``tools/phase_breakdown.py`` (417³: the RK4 step, the stage,
    K1 alone, the pointwise pass and the unfused step for the linear, lossy
    and Westervelt models), fused against unfused after 3 steps, K2 on each
-   model's operands and K1 against their plain versions; (c)
+   model's operands and K1 against their plain versions, and K2 in fp64
+   against ``stage_plain`` on the linear model's reached state (1e-12); (c)
    ``tools/wave_attrib.py`` (417³, ``FUS_STEP_WAVE=1``: K3 chained, the
    model's step through its loop and a plain loop, four K2), K3 against its
    plain version on the model's operands and against four K2; (d)
@@ -211,6 +212,31 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    1e-6 of the JAX package's fp64 run, then fp64 K2 with its band and fp64
    K1 at nx = 36 against their plain versions. Kernels held against their plain versions inside a phase do
    not count as its launches.
+
+20. the slab decomposition (``fenicsxfus_tpu_torch/parallel/``): (a) at
+   world size 1 over NCCL (the card holds one NCCL rank), run where its
+   models are built: at the end of [11], ``ShardedExplicitSolver`` on the
+   headline box (72,511,713 DOF, fp32) for 20 RK4 steps from [11]'s random
+   state against [11]'s ``FUS_FUSED=0`` run through K1 (1e-6, and whether
+   bit for bit), K1 4 times a step, its rate and device memory peak; in
+   [14b], ``ShardedImplicitSolver`` for 2 SDIRK4 steps in fp64 from the
+   implicit headline's reached state against ``model.dirk`` (CG counts
+   within 2, u within 1e-9); (b) two gloo ranks on the one card, their halo
+   planes through host buffers (the side job ``slab:2``, with [18a]):
+   the linear and Westervelt models on 24 × 12 × 12 cells at p = 4 from a
+   pulse on the ranks' interface plane, 40 RK4 steps recorded at sensors
+   on both sides of and on that plane, the linear model on 13 cells along
+   x (uneven), each fp32 and fp64, and the linear implicit model for 2
+   steps in fp64, against world size 1 (fp64 1e-11; in fp32 the one-rank
+   run within FP32_FROM_FP64 of the fp64 run, the two-rank run within 1.5
+   times that distance of it and within that distance of the one-rank run,
+   sensor traces within 1e-6; CG counts within 2; K1 4 times a step on
+   each rank), and K1 on each rank's own operands of each case (its local
+   lattice and packed coefficients) against its plain version, timed; (c)
+   ``drivers.ph1.focal_comparison`` on [17d]'s SC1-BM1 profile with the
+   JAX suite's gates, and
+   ``drivers.ph1.validate(1, 1, 40, 56)`` (a side job), its stamp read back
+   from ``--out``.
 
 Each phase prints its wall time. Every kernel wrapper counts its launches;
 the counts are set to 0 just before a main path runs and read just after.
@@ -1128,7 +1154,9 @@ def phase_unfused_headline(device, card, nx) -> dict:
         f"final u finite {finite}, bit for bit with K1: {same}")
     if not (same and finite):
         raise AssertionError("the unfused headline through K4a -> K4b differs from K1's")
-    return {k: {n: r[n] for n in ("launches", "rate", "solve_s")} for k, r in runs.items()}
+    out = {k: {n: r[n] for n in ("launches", "rate", "solve_s")} for k, r in runs.items()}
+    out["sharded"] = phase_sharded_headline(device, card, model, u0, v0, runs["1"], nsteps)
+    return out
 
 
 def phase_two_kernel(device, card, k2_peak: float) -> dict:
@@ -1773,9 +1801,10 @@ def phase_implicit_headline(device, card) -> dict:
             f"{1 - split['busy_ms'] / split['wall_ms']:.3f}), K1 {split['k1_ms']:.1f} ms = "
             f"{split['k1_ms'] / split['busy_ms']:.3f} of the device time (torch.profiler)")
     del u, v
+    sharded = phase_sharded_implicit(device, card, model)
     against = implicit_against_plain(model, "[14] headline")
     return {"launches": launches, "solve_s": solve, "setup_s": setup, "peak_gib": peak_gib,
-            "mean_it": mean_it, "split": split, **against}
+            "mean_it": mean_it, "split": split, "sharded": sharded, **against}
 
 
 def phase_implicit_lossy(device, card) -> dict:
@@ -2223,27 +2252,30 @@ def water(f0: float):
 
 
 def k1_on_model(model, keys, card, tag) -> dict:
-    """K1 with ``model``'s own packed coefficients ``keys`` (one or two
-    fields) on seeded random fields at its lattice, against its plain
-    version: error, CUDA-event times and the bound (fp32 or fp64 rate by
-    the model's dtype)."""
+    """K1 with ``model``'s own packed coefficients ``keys`` (``k1_on_operands``)."""
+    return k1_on_operands([model.consts[k] for k in keys], model.ops.gdims, model.ops.degree,
+                          card, tag)
+
+
+def k1_on_operands(Fs, gdims, p, card, tag) -> dict:
+    """K1 with the packed coefficients ``Fs`` (one or two fields) on seeded
+    random fields at the lattice ``gdims``, against its plain version:
+    error, CUDA-event times and the bound (fp32 or fp64 rate by the
+    operands' dtype)."""
     import torch
 
     from fenicsxfus_tpu_torch.ops.stiffness import stiffness_apply, stiffness_plain
 
-    ops, dtype = model.ops, model.dtype
-    gen = torch.Generator(device=model.device).manual_seed(16)
-    xs = [torch.randn(ops.gdims, generator=gen, device=model.device, dtype=dtype)
-          for _ in keys]
-    Fs = [model.consts[k] for k in keys]
-    p = ops.degree
+    device, dtype = Fs[0]["F0"].device, Fs[0]["F0"].dtype
+    gen = torch.Generator(device=device).manual_seed(16)
+    xs = [torch.randn(gdims, generator=gen, device=device, dtype=dtype) for _ in Fs]
     rel, err = rel_err(stiffness_apply(xs, Fs, p), stiffness_plain(xs, Fs, p))
     ms = cuda_median_ms(lambda: stiffness_apply(xs, Fs, p))
     pms = cuda_median_ms(lambda: stiffness_plain(xs, Fs, p))
     rate = FP64_FLOP_PER_S if dtype == torch.float64 else FP32_FLOP_PER_S
     bound = floor_ms(nbytes(xs, Fs), nbytes(xs[0]),
-                     stencil_flops(ops.gdims, p, len(keys), (0, 1, 2)), rate)
-    say(f"{tag} K1 {str(dtype).split('.')[-1]} {len(keys)} field(s) at {ops.gdims}: "
+                     stencil_flops(gdims, p, len(Fs), (0, 1, 2)), rate)
+    say(f"{tag} K1 {str(dtype).split('.')[-1]} {len(Fs)} field(s) at {tuple(gdims)}: "
         f"max|dy|/max|y| = {rel:.3e}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
         f"{share_text(bound, ms)} (median of 10, CUDA events; {card})")
     if not rel <= (TOL64 if dtype == torch.float64 else TOL):
@@ -2780,6 +2812,56 @@ def k2_on_model(model, card, tag) -> dict:
     return out
 
 
+def k2_fp64_on_model(model, tag) -> dict:
+    """K2 in fp64 against ``stage_plain`` on ``model``'s reached state: the
+    operands of the first non-final stage of one RK4 step from it (fields,
+    packed coefficients, dense and facet vectors) cast to float64, both
+    held together to TOL64. Where they agree, K2's fp32 gap to its plain
+    version on the same operands is the rounding of fp32, not a fault."""
+    import torch
+
+    from fenicsxfus_tpu_torch.models.common import run_steps
+    from fenicsxfus_tpu_torch.ops.stage import stage_apply, stage_plain
+
+    def f64(x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.double()
+        if isinstance(x, dict):
+            return {k: f64(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(f64(v) for v in x)
+        return x
+
+    out = {}
+
+    def probe(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final, band=None):
+        args = dict(kind=kind, u0=u0, v0=v0, kvp=kvp, kvpp=kvpp, prev=prev, Fs=Fs, dense=dense,
+                    facets=facets, scal=scal, p=p, final=final)
+        if band is not None:
+            args["band"] = band
+        if not final and not out:
+            a64 = f64(args)
+            got32, ref32 = stage_apply(**args), stage_plain(**args)
+            got, ref = stage_apply(**a64), stage_plain(**a64)
+            torch.cuda.synchronize()
+            rel, err = rel_err(got, ref)
+            rel32 = rel_err(got32, ref32)[0]
+            say(f"{tag} K2 {kind} fp64 on the reached state's first non-final stage operands: "
+                f"max|d|/max|ref| = {rel:.3e} (gate {TOL64:g}); the same stage in fp32 "
+                f"{rel32:.3e}")
+            if not rel <= TOL64:
+                raise AssertionError(f"{tag} fp64 K2 disagrees with stage_plain: {rel:.3e}")
+            out.update(rel=rel, max_abs_err=err, rel32=rel32)
+            del a64, got, ref, got32, ref32
+        return stage_apply(**args)
+
+    gd = model.ops.gdims
+    run_steps(model.fused_step(stage_fn=probe), model.consts, model.u_n.view(gd),
+              model.v_n.view(gd), model.t, [model.dt])
+    torch.cuda.synchronize()
+    return out
+
+
 def fused_against_unfused(model, tag: str, kind: str, pipe: Pipeline = ONE_KERNEL) -> float:
     """3 steps from the model's state through the fused step and through
     the unfused step (its stiffness through ``pipe``'s stiffness kernels
@@ -2962,7 +3044,7 @@ def phase_ph1(device, card) -> dict:
                           lambda: ph1.run(sc, bm, device=device, snap=True))
         run["check"] = held(tag, res, PH1_RESULTS / f"sc{sc}_bm{bm}.npz")
         x, amp = res.x, res.amplitude
-        profiles[(sc, bm)] = (x, amp)
+        profiles[(sc, bm)] = run["profile"] = (x, amp)
         if (sc, bm) == (1, 1):
             c0 = 1500.0
             lam, k = c0 / ph1.F0, 2 * np.pi * ph1.F0 / c0
@@ -2997,17 +3079,19 @@ def phase_ph1(device, card) -> dict:
 # and [19i]'s three convergence runs run as side jobs, each in its own
 # process, while [18a] runs (the scripts are launch-bound too, and no
 # timed tool runs until the side jobs have ended).
+VALIDATE_NX = (40, 56)  # [20c]: the nx pair of the PH1 stamp (a side job, under 60 s)
 SIDE_JOBS = ("drift:linear", "drift:westervelt", "convergence:20", "convergence:28",
-             "convergence:36")
+             "convergence:36", "slab:2", f"validate:{VALIDATE_NX[0]}-{VALIDATE_NX[1]}")
 
 
 def side_worker(job: str, path: str) -> None:
     """One side job in its own process (``python -c "import chip_smoke;
     chip_smoke.side_worker(job, path)"``): ``fp32_drift.drift`` of a kind
-    to 8000 steps, or ``bowl_convergence.main`` at one nx, on the card, with
-    the launch counts from 0 just before it and read just after; the result,
-    seconds and counts saved as JSON to ``path`` (written under another
-    name, then renamed into place)."""
+    to 8000 steps, ``bowl_convergence.main`` at one nx, [20b]'s slab runs
+    (``slab_job``) or [20c]'s PH1 stamp (``validate_job``), on the card,
+    with the launch counts from 0 just before it and read just after; the
+    result, seconds and counts saved as JSON to ``path`` (written under
+    another name, then renamed into place)."""
     import torch
 
     what, arg = job.split(":")
@@ -3018,6 +3102,10 @@ def side_worker(job: str, path: str) -> None:
         from fenicsxfus_tpu_torch.tools import fp32_drift
 
         out = {"rows": fp32_drift.drift(8000, arg, "cuda")[0]}
+    elif what == "slab":
+        out = {"rows": slab_job(int(arg), path + ".k1.pt"), "operands": path + ".k1.pt"}
+    elif what == "validate":
+        out = validate_job(*(int(n) for n in arg.split("-")))
     else:
         from fenicsxfus_tpu_torch.drivers import bowl_convergence
 
@@ -3693,8 +3781,8 @@ def phase_phase_breakdown(device, card) -> dict:
     rows beside their bounds, the fused step held against the unfused one
     (1e-4) after 3 steps from the reached state; on each model, K2 against
     its plain version on the model's own operands (``k2_on_model``), and
-    for the linear one K1 with its coefficient (``k1_on_model``),
-    uncounted."""
+    for the linear one K1 with its coefficient (``k1_on_model``) and K2 in
+    fp64 on the reached state (``k2_fp64_on_model``), uncounted."""
     from fenicsxfus_tpu_torch.tools import phase_breakdown
 
     held = {}
@@ -3706,6 +3794,7 @@ def phase_phase_breakdown(device, card) -> dict:
             if kind == "linear":
                 held[kind]["k1"] = k1_on_model(model, type(model).STIFF_KEYS, card,
                                                "[19b] linear at 417³:")
+                held[kind]["k2_fp64"] = k2_fp64_on_model(model, "[19b] linear at 417³:")
         reset_counts()
 
     reset_counts()
@@ -3968,6 +4057,299 @@ def phase_bench(device, card, side: SideJobs) -> dict:
     return out
 
 
+# ------------------------------------------------ [20] the slab decomposition
+
+SHARDED_TOL = 1e-6  # [20a]: fp32, world size 1 against the model's own unfused run
+SHARDED_IMPLICIT_STEPS = 2
+SLAB_STEPS = 40
+SLAB_H = 1.0 / 12  # [20b]: cells of about unit scale, O(1) coefficients (queue 3, item 5)
+FP32_SPLIT = 1.5  # [20b]: two fp32 ranks at most this many times as far from fp64 as one
+# [20b]: how far the one-rank fp32 run may lie from the fp64 run (max|d|/max|ref|)
+FP32_FROM_FP64 = {"u": 2e-5, "v": 5e-4, "ys": 1e-5}
+SENSOR_TOL = 1e-6  # [20b]: fp32 sensor traces, two ranks against one
+
+
+def phase_sharded_headline(device, card, model, u0, v0, ref, nsteps) -> dict:
+    """[20a] (run at the end of [11], on its model and random state)
+    ``ShardedExplicitSolver`` at world size 1 over NCCL on the headline box
+    (104³, p = 4, 72,511,713 DOF, fp32): UNFUSED_STEPS RK4 steps from [11]'s
+    state against [11]'s unfused run through K1 (``FUS_FUSED=0``; rel
+    SHARDED_TOL, and whether bit for bit), K1 4 times a step, the rate and
+    the device memory peak."""
+    import torch
+
+    from fenicsxfus_tpu_torch.parallel import ShardedExplicitSolver, process_group
+
+    with process_group("nccl"):
+        t0 = time.perf_counter()
+        solver = ShardedExplicitSolver(model, device=device)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        model.u_n, model.v_n = u0.clone(), v0.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        # --- the main path: counts from 0 just before, read just after
+        reset_counts()
+        t0 = time.perf_counter()
+        u, _, _ = solver.rk(0.0, UNFUSED_STEPS * model.dt)
+        torch.cuda.synchronize()
+        solve = time.perf_counter() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+    rate = model.number_of_dofs() * nsteps / solve / 1e9
+    rel = rel_err(u, ref["u"])[0]
+    same = torch.equal(u, ref["u"])
+    say(f"[20a] ShardedExplicitSolver, world size 1 over NCCL, headline {model.ops.gdims}: "
+        f"setup {setup:.3f} s, {nsteps} RK4 steps in {solve:.3f} s, {rate:.4f} "
+        f"GDOF-RK4-updates/s against [11]'s unfused K1 step {ref['rate']:.4f}; K1 launches "
+        f"{launches['K1']} ({launches['K1'] / nsteps:.0f} a step); device memory peak "
+        f"{peak:.3f} GiB; against [11]'s FUS_FUSED=0 run max|du|/max|u| = {rel:.3e} (gate "
+        f"{SHARDED_TOL:g}), bit for bit: {same} ({card})")
+    if launches["K1"] != 4 * nsteps or any(launches[k] for k in ("K4a", "K4b") + STAGE_KERNELS):
+        raise AssertionError(f"[20a] expected K1 4 times a step and no other kernel: {launches}")
+    if not (rel <= SHARDED_TOL and bool(torch.isfinite(u).all())):
+        raise AssertionError(f"[20a] the sharded headline differs from the unfused run: {rel:.3e}")
+    return {"launches": launches, "rate": rate, "solve_s": solve, "setup_s": setup,
+            "peak_gib": peak, "rel": rel, "bit_equal": same}
+
+
+def phase_sharded_implicit(device, card, model) -> dict:
+    """[20a] (run in [14b], on its model at the state its SDIRK4 steps
+    reached) ``ShardedImplicitSolver`` at world size 1 over NCCL, fp64:
+    SHARDED_IMPLICIT_STEPS steps against ``model.dirk`` over the same steps
+    (the worst CG count within 2, u within 1e-9)."""
+    import torch
+
+    from fenicsxfus_tpu_torch.parallel import ShardedImplicitSolver, process_group
+
+    u0, v0, t0 = model.u_n.clone(), model.v_n.clone(), model.t
+    tf = t0 + SHARDED_IMPLICIT_STEPS * model.dt
+    u1 = model.dirk(t0, tf)[0].clone()
+    cg1 = model.cg_stats["max_iterations"]
+    model.u_n, model.v_n = u0, v0
+    with process_group("nccl"):
+        solver = ShardedImplicitSolver(model, device=device)
+        torch.cuda.synchronize()
+        # --- the main path: counts from 0 just before, read just after
+        reset_counts()
+        t_start = time.perf_counter()
+        u2 = solver.dirk(t0, tf)[0]
+        torch.cuda.synchronize()
+        solve = time.perf_counter() - t_start
+        launches = counts()
+    cg2 = model.cg_stats["max_iterations"]
+    rel = rel_err(u2, u1)[0]
+    say(f"[20a] ShardedImplicitSolver, world size 1 over NCCL, implicit headline, fp64: "
+        f"{SHARDED_IMPLICIT_STEPS} SDIRK4 steps in {solve:.3f} s; worst CG iterations {cg2} "
+        f"against model.dirk's {cg1} (gate: within 2); max|du|/max|u| = {rel:.3e} (gate 1e-9); "
+        f"K1 launches {launches['K1']} ({card})")
+    if abs(cg1 - cg2) > 2 or not rel <= 1e-9:
+        raise AssertionError(f"[20a] the sharded implicit run differs: cg {cg2} vs {cg1}, {rel:.3e}")
+    if launches["K1"] < 3 * 4 * SHARDED_IMPLICIT_STEPS or any(
+            launches[k] for k in ("K4a", "K4b") + STAGE_KERNELS):
+        raise AssertionError(f"[20a] the sharded CG did not run through K1 alone: {launches}")
+    return {"launches": launches, "solve_s": solve, "cg": [cg1, cg2], "rel": rel}
+
+
+def slab_cases() -> list:
+    """[20b]'s cases (``fenicsxfus_tpu_torch/parallel/runs.py``), each in
+    fp32 and in fp64: ``LinearSpectralExplicit`` and
+    ``WesterveltSpectralExplicit`` on 24 × 12 × 12 cells (h = 1/12, p = 4,
+    232,897 DOF) from a plane Gaussian pulse of u on the plane rank 0's slab
+    ends at (x = 1), SLAB_STEPS RK4 steps, recording at sensors on both
+    sides of and on that plane, on and off the nodes; the linear model on
+    13 × 12 × 12 cells (7 + 6 and a padding cell); and, fp64 only,
+    ``LinearSpectralImplicit``, SHARDED_IMPLICIT_STEPS SDIRK4 steps."""
+    h = SLAB_H
+    dt = 0.5 * h / 16
+    c0 = 1.0 + 0.1 * np.random.default_rng(20).random(24 * 12 * 12)
+    out = []
+    for grid in ((24, 12, 12), (13, 12, 12)):
+        L = grid[0] * h
+        x_if = -(-grid[0] // 2) * h
+        box = ("box", grid, (0.0, 0.0, 0.0), (L, 1.0, 1.0))
+        pts = np.array([[x_if - 0.1, x_if, x_if + 0.1, x_if - 0.03, x_if + 0.04],
+                        [0.5, 0.5, 0.5, 0.43, 0.61], [0.5, 0.5, 0.5, 0.57, 0.38]])
+        c = c0[: int(np.prod(grid))]
+        models = [("linear", "LinearSpectralExplicit", (4, c, 1.0, 2.0, 1.0, 1.0, 4, dt))]
+        if grid[0] == 24:
+            models.append(("westervelt", "WesterveltSpectralExplicit",
+                           (4, c, 1.0, 1e-3, 3.5, 2.0, 1.0, 1.0, 4, dt)))
+        for dtype in ("float32", "float64"):
+            for kind, cls, args in models:
+                out.append(dict(name=f"{kind} {grid[0]} {dtype}", mesh=box, tag_L=L, model=cls,
+                                args=args, dtype=dtype, run="rk_record", t_end=SLAB_STEPS * dt,
+                                points=pts, u0=([x_if], 0.2, 0.05), k1_operands=True))
+        if grid[0] == 24:
+            out.append(dict(name="implicit 24 float64", mesh=box, tag_L=L,
+                            model="LinearSpectralImplicit",
+                            args=(4, c, 1.0, 2.0, 1.0, 1.0, 4, 4 * dt), dtype="float64",
+                            run="dirk", t_end=SHARDED_IMPLICIT_STEPS * 4 * dt,
+                            u0=([x_if], 0.2, 0.05), k1_operands=True))
+    return out
+
+
+def slab_job(world: int, operands: str) -> list:
+    """[20b] in a side process: ``slab_cases`` at world size 1 over NCCL and
+    at ``world`` gloo ranks on the one card (their halo planes through host
+    buffers), each a ``parallel.launch.spawn``; per case the two-rank run's
+    distance from the one-rank run, each rank's K1 launches, the CG counts,
+    and for an fp32 case both runs' distance from the fp64 one-rank run;
+    then the sharded example at its defaults on the card (one NCCL rank).
+    The operands each gloo rank's K1 got, per case, are saved to
+    ``operands`` (``torch.save``) for ``phase_sharded`` to hold and time."""
+    import torch
+
+    from fenicsxfus_tpu_torch.examples import sharded_planewave3d
+    from fenicsxfus_tpu_torch.parallel import runs, spawn
+
+    cases = slab_cases()
+    one = spawn(runs.run_cases, 1, "nccl", "cuda", args=(cases,))[0]
+    many = spawn(runs.run_cases, world, "gloo", "cuda", args=(cases,))
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+    torch.save({spec["name"]: [ranks[i].pop("k1_operands") for ranks in many]
+                for i, spec in enumerate(cases)}, operands)
+    by_name = {r["name"]: r for r in one}
+    rows = []
+    for i, (spec, a) in enumerate(zip(cases, one)):
+        b = [ranks[i] for ranks in many]
+        keys = [k for k in ("u", "v", "ys") if k in a]
+        row = {"name": spec["name"], "dtype": spec["dtype"], "run": spec["run"],
+               "rel": {k: rel(b[0][k], a[k]) for k in keys},
+               "ranks_equal": all(np.array_equal(r[k], b[0][k]) for r in b for k in keys),
+               "k1": [r["k1"] for r in b], "k1_one": a["k1"],
+               "seconds": [a["seconds"], b[0]["seconds"]]}
+        if "cg" in a:
+            row["cg"] = [a["cg"], b[0]["cg"]]
+        if spec["dtype"] == "float32":
+            ref = by_name[spec["name"].replace("float32", "float64")]
+            row["vs_fp64"] = {k: [rel(a[k], ref[k]), rel(b[0][k], ref[k])] for k in keys}
+        rows.append(row)
+    ex = sharded_planewave3d.main()
+    rows.append({"name": "examples.sharded_planewave3d", "ndev": ex["ndev"],
+                 "ndofs": ex["ndofs"], "max_u": ex["max_u"],
+                 "finite": bool(np.all(np.isfinite(ex["u"])))})
+    return rows
+
+
+def validate_job(nx: int, nx_fine: int) -> dict:
+    """[20c] in a side process: ``drivers.ph1.validate(1, 1, nx, nx_fine)``
+    on the card with its stamp written to a temporary ``--out``; the stamp
+    read back from that file."""
+    import tempfile
+
+    from fenicsxfus_tpu_torch.drivers import ph1
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "validation_sc1_bm1.json")
+        t0 = time.perf_counter()
+        ph1.validate(1, 1, nx, nx_fine, out=out, device="cuda")
+        seconds = time.perf_counter() - t0
+        return {"stamp": json.loads(Path(out).read_text()), "seconds": seconds,
+                "nx": [nx, nx_fine]}
+
+
+def _numbers(tree):
+    """Every number in a JSON tree."""
+    if isinstance(tree, dict):
+        return [n for v in tree.values() for n in _numbers(v)]
+    if isinstance(tree, list):
+        return [n for v in tree for n in _numbers(v)]
+    return [tree] if isinstance(tree, (int, float)) and not isinstance(tree, bool) else []
+
+
+def phase_sharded(device, card, side: SideJobs, explicit, implicit, sc1_bm1) -> dict:
+    """[20] the slab decomposition: (a) world size 1 over NCCL, run in [11]
+    and [14b] (``phase_sharded_headline``, ``phase_sharded_implicit``); (b)
+    two gloo ranks on the card (the side job ``slab:2``): fp64 within 1e-11
+    of world size 1; in fp32 the one-rank run within FP32_FROM_FP64 of the
+    fp64 run, the two-rank run within FP32_SPLIT times that distance of it
+    and within that distance of the one-rank run, sensor traces within
+    SENSOR_TOL; the CG counts within 2, K1 4 times a step on each rank;
+    K1 on each rank's own operands of each case against its plain version
+    (``k1_on_operands``);
+    (c) ``ph1.focal_comparison`` on [17d]'s SC1-BM1 profile (the JAX
+    suite's gates) and the PH1 stamp of the side job ``validate``, read
+    back from its file."""
+    import torch
+
+    from fenicsxfus_tpu_torch.drivers import ph1
+
+    t_phase = time.perf_counter()
+    res = side.result("slab:2")
+    operands = torch.load(res["operands"])
+    *rows, ex = res["rows"]
+    say(f"[20b] the side job slab:2 took {res['seconds']:.1f} s (one NCCL rank, then two gloo "
+        f"ranks on the card, then the sharded example)")
+    say(f"[20b] examples.sharded_planewave3d at its defaults on the card: {ex['ndev']} rank(s), "
+        f"{ex['ndofs']} DOF, max|u| = {ex['max_u']:.1f}, finite {ex['finite']}")
+    if not (ex["finite"] and ex["max_u"] > 0):
+        raise AssertionError(f"[20b] the sharded example: {ex}")
+    for row in rows:
+        gate = 1e-11 if row["dtype"] == "float64" else None
+        rel = ", ".join(f"{k} {v:.3e}" for k, v in row["rel"].items())
+        extra = ""
+        if "vs_fp64" in row:
+            extra = (f"; from the fp64 run, one rank against two (gates {FP32_FROM_FP64}, two "
+                     f"ranks at most {FP32_SPLIT}x one): " + ", ".join(
+                         f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in row["vs_fp64"].items()))
+        fp32_gate = f"fp32: the one-rank run's distance from fp64, ys {SENSOR_TOL:g}"
+        say(f"[20b] {row['name']} ({row['run']}): 2 gloo ranks against world size 1 (NCCL) "
+            f"max|d|/max|ref| {rel} (gate {gate or fp32_gate}){extra}; K1 "
+            f"launches per rank {row['k1']} (world size 1: {row['k1_one']})"
+            + (f"; worst CG iterations {row['cg']}" if "cg" in row else "")
+            + f"; ranks equal {row['ranks_equal']}; {row['seconds'][1]:.2f} s ({card})")
+        ok = row["ranks_equal"] and len(set(row["k1"])) == 1 and row["k1"][0] > 0
+        if row["run"] == "rk_record":
+            ok &= row["k1"][0] == row["k1_one"] == 4 * SLAB_STEPS
+        if gate is not None:
+            ok &= all(v <= gate for v in row["rel"].values())
+        else:
+            ok &= all(a <= FP32_FROM_FP64[k] and b <= FP32_SPLIT * a and row["rel"][k] <= a
+                      for k, (a, b) in row["vs_fp64"].items())
+            ok &= row["rel"].get("ys", 0.0) <= SENSOR_TOL
+        if "cg" in row:
+            ok &= abs(row["cg"][0] - row["cg"][1]) <= 2
+        if not ok:
+            raise AssertionError(f"[20b] {row['name']}: {row}")
+    k1 = []
+    with uncounted():
+        for row in rows:
+            for rank, ops in enumerate(operands[row["name"]]):
+                Fs = [{k: f.to(device) for k, f in F.items()} for F in ops["F"]]
+                m = k1_on_operands(Fs, ops["gdims"], ops["degree"], card,
+                                   f"[20b] {row['name']}, rank {rank}'s own operands:")
+                k1.append({**m, "case": row["name"], "rank": rank, "gdims": ops["gdims"],
+                           "fields": len(Fs), "launches": row["k1"][rank]})
+    x, amp = sc1_bm1["profile"]
+    print("[20c]", end="")
+    fc = ph1.focal_comparison(1, 1, x, amp)
+    gates = (0.05, 2.0, 0.15)  # tests/test_ph1_validation.py:165-180
+    got = (fc["dp_rel"], fc["dx_mm"], fc["dext_rel"])
+    say(f"[20c] focal_comparison on [17d]'s SC1-BM1 profile: dP {got[0]:.4f}, dx {got[1]:.3f} mm, "
+        f"d-6dB {got[2]:.4f} (gates {gates})")
+    if not all(v < g for v, g in zip(got, gates)):
+        raise AssertionError(f"[20c] SC1-BM1 misses the focal gates: {fc}")
+    val = side.result(f"validate:{VALIDATE_NX[0]}-{VALIDATE_NX[1]}")
+    stamp = val["stamp"]
+    nums = _numbers(stamp)
+    finite = bool(nums) and all(np.isfinite(v) for v in nums)
+    say(f"[20c] validate(1, 1, {val['nx'][0]}, {val['nx'][1]}) in a side process: "
+        f"{val['seconds']:.1f} s; stamp read back from --out: platform {stamp['platform']!r}, "
+        f"convergence L2 {stamp['convergence']['profile_l2']:.4f}, tf stationarity "
+        f"{stamp['tf_stationarity']['profile_l2']:.4f}, focal dP {stamp['focal']['dp_rel']:.4f}; "
+        f"{len(nums)} numbers, all finite: {finite}")
+    if not (finite and stamp["sc"] == 1 and stamp["bm"] == 1 and "focal" in stamp
+            and stamp["platform"].startswith("cuda")):
+        raise AssertionError(f"[20c] the stamp is not whole and finite: {stamp}")
+    say(f"[20] done in {time.perf_counter() - t_phase:.1f} s")
+    return {"explicit": explicit, "implicit": implicit, "ranks": {"rows": rows, "example": ex},
+            "k1": k1, "focal": fc, "stamp": stamp}
+
+
 def main() -> int:
     import torch
 
@@ -4012,6 +4394,8 @@ def main() -> int:
     with SideJobs() as side:
         slice18 = phase_slice(device, card, side)
         bench = phase_bench(device, card, side)
+        sharded = phase_sharded(device, card, side, two["unfused"]["sharded"],
+                                implicit["headline"]["sharded"], prod["ph1"][(1, 1)])
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
     # from phase [11], K3 from phase [12] (HITU for focused, the headline
@@ -4134,6 +4518,19 @@ def main() -> int:
     kernels.append(entry(f"stage_apply westervelt +band fp64 (K2), bowl_convergence "
                          f"{k2['gdims']}", "stage.cu", "fenicsxfus_tpu/ops/pallas_stage_v3.py:442",
                          k2["launches"], k2))
+    # K1 on [20]'s sharded paths: world size 1 over NCCL at the headline (its
+    # timing [2]'s at that lattice; fp64 [14]'s), and two gloo ranks on the
+    # card (each case and rank held and timed on that rank's own operands)
+    kernels += [entry("stiffness_apply (K1), sharded explicit, world size 1 (NCCL)",
+                      "stiffness.cu", "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                      sharded["explicit"]["launches"]["K1"], k1),
+                entry("stiffness_apply fp64 (K1), sharded implicit CG, world size 1 (NCCL)",
+                      "stiffness.cu", "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                      sharded["implicit"]["launches"]["K1"], implicit["k1"][1])]
+    kernels += [entry(f"stiffness_apply (K1), 2 gloo ranks on one card, {m['case']}, rank "
+                      f"{m['rank']} {m['gdims']} {m['fields']} field(s)", "stiffness.cu",
+                      "fenicsxfus_tpu/ops/pallas_v3.py:276", m["launches"], m)
+                for m in sharded["k1"]]
     say(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

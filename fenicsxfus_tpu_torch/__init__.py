@@ -38,8 +38,10 @@ reference-scale run and ``check_artifact``), the PH1 transcranial suite
 fp32 drift tool (``tools/fp32_drift.py``), and the JAX package's scripts: the
 examples (``examples/``), the experiments (``experiments/``), MENDOUSSE
 (``drivers/mendousse.py``) and the speed tools (``tools/operator_speed.py``,
-``stage_attrib.py``, ``solver_speed.py``, ``hybrid_speed.py``). Entry points
-run on the card unless the caller asks for the CPU (``device="cpu"``).
+``stage_attrib.py``, ``solver_speed.py``, ``hybrid_speed.py``), and the slab
+domain decomposition on ``torch.distributed`` (``parallel/``: one process
+per rank, gloo on the CPU, NCCL on the card). Entry points run on the card
+unless the caller asks for the CPU (``device="cpu"``).
 """
 
 from .core.bowl import bowl_cap_area, create_bowl_box  # noqa: F401

@@ -19,9 +19,17 @@ Run on the card: ``python -m fenicsxfus_tpu_torch.drivers.ph1 --sc 1 --bm 4
 cases in order (a case that fails raises and ends the sweep), ``--check DIR``
 to hold each case's focal peak against ``DIR/sc{N}_bm{M}.npz``
 (``hitu.check_artifact``; with ``--snap``, at the committed runs' sampling,
-each sensor at its nearest node), ``--dtype float64`` for an fp64 run. The
-published-table comparison of the JAX package's ``validate.py`` waits for
-the Aubry et al. tables to be in the repository.
+each sensor at its nearest node), ``--dtype float64`` for an fp64 run.
+
+The validation stamp of the JAX package's ``validate.py``: ``python -m
+fenicsxfus_tpu_torch.drivers.ph1 --validate --sc 1 --bm 4 [--nx 80]
+[--nx-fine 112] [--out stamp.json] [--published table.json]`` runs
+``validate``: nx-refinement convergence, tf stationarity, the water cases'
+focal metrics against the closed forms, the flat-layer 1D transmission
+check and, where a transcription of the Aubry et al. tables is given
+(``--published``; none is in the repository, and the default path beside
+this file does not exist), the deltas against it. The stamp is written only
+to ``--out``.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from ..models.focused import WesterveltSpectralFocused
 from ..models.linear import LinearSpectralExplicit
 from ..models.lossy import LossySpectralExplicit
 from ..models.westervelt import WesterveltSpectralExplicit
-from ..utils import compute_diffusivity_of_sound, estimate_stable_dt
+from ..utils import compute_diffusivity_of_sound, estimate_stable_dt, resolve_device
 from .hitu import _synchronize, check_artifact
 
 # --------------------------------------------------------------------------
@@ -505,12 +513,125 @@ def focal_reference(sc, bm):
     return {"focal_p": pk, "focal_x": xpk, "ext6": ext}
 
 
+# Where a transcription of the Aubry et al. (2022) tables would sit: no such
+# file is committed (nothing could check it against the paper), so by
+# default the loader finds none and the closed forms gate the water cases.
+PUBLISHED_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "ph1_published_values.json")
+PUBLISHED_FIELDS = {"source", "code", "focal_p_Pa", "focal_x_m", "ext6_m"}
+
+
+def published_values(sc, bm, path=None):
+    """The focal metrics of the Aubry et al. (2022) intercomparison (J.
+    Acoust. Soc. Am. 152, 1003) for SC``sc``-BM``bm`` from the JSON file
+    ``path`` (default ``PUBLISHED_FILE``), or None when the file or the case
+    is absent. The JAX package's schema; every field is required, so the
+    provenance is never lost::
+
+        {"SC1-BM1": {"source": "doi:10.1121/10.0013426, Table III",
+                     "code": "KWAVE", "focal_p_Pa": ..., "focal_x_m": ...,
+                     "ext6_m": ...}, ...}
+    """
+    path = PUBLISHED_FILE if path is None else path
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        table = json.load(f)
+    ent = table.get(f"SC{sc}-BM{bm}")
+    if ent is None:
+        return None
+    missing = PUBLISHED_FIELDS - set(ent)
+    if missing:
+        raise ValueError(f"{os.path.basename(path)} SC{sc}-BM{bm}: missing fields {missing} "
+                         "(provenance is required; see published_values)")
+    return ent
+
+
+def published_comparison(sc, bm, x, amp, path=None):
+    """Deltas of the profile's focal metrics against a transcribed
+    intercomparison entry (``published_values``), or None without one."""
+    ent = published_values(sc, bm, path)
+    if ent is None:
+        return None
+    pk, xpk, ext = focal_metrics(x, amp)
+    out = {
+        "published": ent,
+        "measured": {"focal_p": pk, "focal_x": xpk, "ext6": ext},
+        "dp_rel": float(abs(pk - ent["focal_p_Pa"]) / ent["focal_p_Pa"]),
+        "dx_mm": float(abs(xpk - ent["focal_x_m"]) * 1e3),
+        "dext_rel": float(abs(ext - ent["ext6_m"]) / ent["ext6_m"]),
+    }
+    print(f"  vs published ({ent['code']}, {ent['source']}): dP {out['dp_rel']*100:.2f}%  "
+          f"dx {out['dx_mm']:.2f} mm  dext {out['dext_rel']*100:.1f}%")
+    return out
+
+
+def focal_comparison(sc, bm, x, amp):
+    """The profile's focal metrics against the closed form's for a water
+    benchmark (``focal_reference``); None for the skull cases."""
+    ref = focal_reference(sc, bm)
+    if ref is None:
+        return None
+    pk, xpk, ext = focal_metrics(x, amp)
+    out = {
+        "measured": {"focal_p": pk, "focal_x": xpk, "ext6": ext},
+        "reference": ref,
+        "dp_rel": float(abs(pk - ref["focal_p"]) / ref["focal_p"]),
+        "dx_mm": float(abs(xpk - ref["focal_x"]) * 1e3),
+        "dext_rel": float(abs(ext - ref["ext6"]) / ref["ext6"]),
+    }
+    print(f"  focal SC{sc}-BM{bm}: P {pk/1e3:.1f} kPa (ref {ref['focal_p']/1e3:.1f}, "
+          f"{out['dp_rel']*100:.2f}%)  x {xpk*1e3:.2f} mm (ref {ref['focal_x']*1e3:.2f}, "
+          f"d {out['dx_mm']:.2f} mm)  -6dB ext {ext*1e3:.1f} mm (ref {ref['ext6']*1e3:.1f}, "
+          f"{out['dext_rel']*100:.1f}%)")
+    return out
+
+
+def platform(device) -> str:
+    """The stamp's platform: the torch device type, and the card's name on
+    the card."""
+    dev = torch.device(device)
+    return f"cuda ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else dev.type
+
+
+def validate(sc, bm, nx, nx_fine, dtype=None, out=None, device="cuda", published=None,
+             profiles=None) -> dict:
+    """The validation stamp of one case: convergence (nx → nx_fine),
+    tf stationarity, the focal comparison (water cases), the published
+    deltas (where ``published``, a table file, holds the case) and the
+    flat-layer 1D transmission check (against the BM1 profile). Each
+    profile runs once (``profiles``). The stamp is written as JSON to
+    ``out`` if given, and nowhere else."""
+    profiles = {} if profiles is None else profiles
+    stamp = {"sc": sc, "bm": bm, "platform": platform(resolve_device(device))}
+    kw = dict(dtype=dtype, device=device, profiles=profiles)
+    stamp["convergence"] = convergence(sc, bm, nx, nx_fine, **kw)
+    stamp["tf_stationarity"] = tf_stationarity(sc, bm, nx, **kw)
+    x, amp = run_profile(sc, bm, nx, **kw)
+    fc = focal_comparison(sc, bm, x, amp)
+    if fc is not None:
+        stamp["focal"] = fc
+    pc = published_comparison(sc, bm, x, amp, published)
+    if pc is not None:
+        stamp["published"] = pc
+    if BM_LAYERS[bm] and not BM_CURVED[bm]:
+        xw, ampw = run_profile(sc, 1, nx, **kw)
+        stamp["transmission_1d"] = transmission_check(sc, bm, x, amp, xw, ampw)
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(stamp, f, indent=1)
+        print(f"  wrote {out}")
+    return stamp
+
+
 # --------------------------------------------------------------------------
 # command line
 
 
 def main(argv=None) -> None:
-    """Command line: one PH1 case, or all 14 in order (``--all``)."""
+    """Command line: one PH1 case, all 14 in order (``--all``), or one
+    case's validation stamp (``--validate``)."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -527,7 +648,18 @@ def main(argv=None) -> None:
                     help="read each sensor at its nearest node (the committed runs' sampling)")
     ap.add_argument("--dtype", default="float32", choices=("float32", "float64"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--validate", action="store_true",
+                    help="the case's validation stamp (with --out: its JSON file)")
+    ap.add_argument("--nx-fine", type=int, default=112, help="--validate's finer nx")
+    ap.add_argument("--published", default=None,
+                    help="--validate: a JSON transcription of the published tables")
     args = ap.parse_args(argv)
+    if args.validate:
+        if args.sc is None or args.bm is None or args.all:
+            ap.error("--validate takes one case: --sc and --bm")
+        validate(args.sc, args.bm, args.nx, args.nx_fine, dtype=getattr(torch, args.dtype),
+                 out=args.out, device=args.device, published=args.published)
+        return
     if args.all == (args.sc is not None or args.bm is not None):
         ap.error("give --sc and --bm, or --all")
     if not args.all and (args.sc is None or args.bm is None):

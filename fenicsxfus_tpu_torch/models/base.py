@@ -421,12 +421,14 @@ class ImplicitModelBase(SpectralModelBase):
     def rhs(self, tau, t, u, v):
         return type(self).rhs_stage(self.ops, self.consts, tau, t, u, v)
 
-    def dirk_step(self, ops=None, stats=None):
+    def dirk_step(self, ops=None, stats=None, dot=None):
         """The SDIRK step ``step(consts, (u, v, t), dt) -> (u, v, t + dt)``
         (the JAX package's ``_build_run`` step): per stage, b from
         ``rhs_stage``, then CG on ``lhs_pure`` from the previous stage's kv
         (zero at the first stage). ``ops`` replaces the model's operators
-        (``ops.plain()`` runs the plain stiffness). Each step appends
+        (``ops.plain()`` runs the plain stiffness; the slab decomposition
+        passes a rank's local operators), ``dot`` the CG's inner product
+        (``cg_solve``; the slab passes its reduced dot). Each step appends
         (worst CG iterations, worst final ‖r‖² as a 0-d tensor) over its
         stages to the list ``stats``, if given."""
         A_tab, b_tab, c_tab = self.A_tab, self.b_tab, self.c_tab
@@ -451,7 +453,7 @@ class ImplicitModelBase(SpectralModelBase):
                 x0 = kvs[-1] if kvs else torch.zeros_like(v0)
                 kv, (it, res2) = cg_solve(
                     lambda x: cls.lhs_pure(ops, consts, tau, x), b, x0, dinv,
-                    rtol=rtol, maxiter=maxiter,
+                    rtol=rtol, maxiter=maxiter, dot=dot,
                 )
                 it_max = max(it_max, it)
                 res_max = torch.maximum(res_max, res2)

@@ -83,6 +83,8 @@ class LinearSpectralS2(ExplicitModelBase):
     x₁ ∈ [−0.011, 0.011] matching :431-439). It declares no fused kind, so
     it takes the unfused step."""
 
+    STIFF_KEYS = ("coeff_u",)
+
     def __init__(self, mesh, meshtags, degree, c0, rho0, freq0, p0, s0,
                  source_profile=None, dtype=torch.float32, device="cuda"):
         super().__init__(mesh, meshtags, degree, freq0, p0, s0, 4, 0.0, dtype, device)
@@ -94,6 +96,7 @@ class LinearSpectralS2(ExplicitModelBase):
         prof_nodal = np.asarray(profile(ops.space.dof_coords.T), np.float64)
         self.consts = self.base_consts()
         self.consts["inv_m"] = ops.to_device(1.0 / ops.assemble_diag(1.0 / (rho * c * c)))
+        self.raw_stiff = {"coeff_u": 1.0 / rho}
         self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
         # ∫_Γ1 (1/ρ) s(x) φ ds — profile folded into the facet vector with
         # the per-cell 1/ρ (NOT a scalar mean; the medium may vary there)
@@ -215,6 +218,10 @@ class LinearSpectralSponge(ExplicitModelBase):
     packed once (``pack_scales_nodal``), on the general path the raw nodal
     values [ndofs] are gathered per cell at every apply."""
 
+    STIFF_KEYS = ("coeff_u",)
+    NODAL_STIFF_KEYS = ("delta_scales",)
+    SHARD_INV_KEYS = ("inv_m",)  # streamed setup: sum local m, then invert
+
     def __init__(self, mesh, meshtags, degree, c0, rho0, delta0, freq0, p0, s0,
                  sponge_start: float = 0.12, delta_profile=None,
                  dtype=torch.float32, device="cuda"):
@@ -236,7 +243,9 @@ class LinearSpectralSponge(ExplicitModelBase):
         m = ops.assemble_diag(np.full(nc, 1.0 / rho0)) + ops.facet_vector_nodal(
             self.ABC_TAG, delta / (rho0 * c0))
         self.consts["inv_m"] = ops.to_device(1.0 / m)
+        self.raw_stiff = {"coeff_u": np.full(nc, c0 * c0 / rho0)}
         self.consts["coeff_u"] = ops.stiff_coeff(np.full(nc, c0 * c0 / rho0))
+        self.raw_nodal = {"delta_scales": delta / rho0}
         self.consts["delta_scales"] = (
             ops.pack_scales_nodal(delta / rho0) if ops.lattice is not None
             else ops.to_device(delta / rho0))

@@ -64,6 +64,7 @@ class WesterveltSpectralFocused(ExplicitModelBase):
     analogue. With β = δ = 0 it reduces to a focused linear solver."""
 
     STIFF_KEYS = ("coeff_u", "coeff_v")
+    PAD_ONE_KEYS = ("m0",)
     FUSED_KIND = "focused"
 
     def __init__(self, mesh, meshtags, degree, c0, rho0, delta0, beta0, freq0,
@@ -83,6 +84,7 @@ class WesterveltSpectralFocused(ExplicitModelBase):
             + ops.facet_vector(self.ABC_TAG, delta / (rho * c**3))
         )
         self.consts["d2"] = ops.to_device(ops.assemble_diag(2.0 * beta / (rho * rho * c**4)))
+        self.raw_stiff = {"coeff_u": 1.0 / rho, "coeff_v": delta / (rho * c * c)}
         self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
         self.consts["coeff_v"] = ops.stiff_coeff(delta / (rho * c * c))
         self.consts["abc_diag"] = ops.to_device(ops.facet_vector(self.ABC_TAG, 1.0 / (rho * c)))

@@ -76,6 +76,7 @@ class LinearSpectralExplicit(ExplicitModelBase):
 
     STIFF_KEYS = ("coeff_u",)
     FUSED_KIND = "linear"
+    SHARD_INV_KEYS = ("inv_m",)  # stored as 1/assembled-diagonal
 
     def __init__(self, mesh, meshtags, degree, c0, rho0, freq0, p0, s0,
                  rk_order, dt, dtype=torch.float32, device="cuda"):
@@ -89,7 +90,9 @@ class LinearSpectralExplicit(ExplicitModelBase):
         # LHS lumped mass ∫ (1/ρc²) u φ dx (reference a-form :349-353),
         # assembled and inverted on the host
         self.consts["inv_m"] = ops.to_device(1.0 / ops.assemble_diag(1.0 / (rho * c * c)))
-        # RHS pieces (reference L-form :355-361)
+        # RHS pieces (reference L-form :355-361); the raw DG-0 coefficient
+        # (float64, host) is what the slab decomposition packs per rank
+        self.raw_stiff = {"coeff_u": 1.0 / rho}
         self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
         self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
         self.consts["abc_diag"] = ops.to_device(ops.facet_vector(self.ABC_TAG, 1.0 / (rho * c)))
@@ -121,6 +124,7 @@ class LinearSpectralImplicit(ImplicitModelBase):
     """SDIRK linear wave solver (reference ``_linear.py:516-817``)."""
 
     STIFF_KEYS = ("coeff_u",)
+    PAD_ONE_KEYS = ("m",)  # inverted inside the solver: padding must stay finite
 
     def __init__(self, mesh, meshtags, degree, c0, rho0, freq0, p0, s0,
                  rk_order, dt, dtype=torch.float64, device="cuda", cg_rtol=1e-8,
@@ -133,6 +137,7 @@ class LinearSpectralImplicit(ImplicitModelBase):
         ops = self.ops
         self.consts = self.base_consts()
         self.consts["m"] = ops.to_device(ops.assemble_diag(1.0 / (rho * c * c)))
+        self.raw_stiff = {"coeff_u": 1.0 / rho}
         self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
         self.consts["kdiag"] = ops.stiffness_diag(1.0 / rho)
         self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))

@@ -27,6 +27,7 @@ class LossySpectralExplicit(ExplicitModelBase):
 
     STIFF_KEYS = ("coeff_u", "coeff_v")
     FUSED_KIND = "lossy"
+    SHARD_INV_KEYS = ("inv_m",)
 
     def __init__(self, mesh, meshtags, degree, c0, rho0, delta0, freq0, p0, s0,
                  rk_order, dt, dtype=torch.float32, device="cuda"):
@@ -43,6 +44,7 @@ class LossySpectralExplicit(ExplicitModelBase):
             ops.assemble_diag(1.0 / (rho * c * c))
             + ops.facet_vector(self.ABC_TAG, delta / (rho * c**3))
         ))
+        self.raw_stiff = {"coeff_u": 1.0 / rho, "coeff_v": delta / (rho * c * c)}
         self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
         self.consts["coeff_v"] = ops.stiff_coeff(delta / (rho * c * c))
         self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
@@ -68,6 +70,7 @@ class LossySpectralImplicit(ImplicitModelBase):
     """SDIRK lossy solver (reference ``_lossy.py:297-628``)."""
 
     STIFF_KEYS = ("coeff_u", "coeff_v")
+    PAD_ONE_KEYS = ("m",)
 
     def __init__(self, mesh, meshtags, degree, c0, rho0, delta0, freq0, p0, s0,
                  rk_order, dt, dtype=torch.float64, device="cuda", cg_rtol=1e-8,
@@ -84,6 +87,7 @@ class LossySpectralImplicit(ImplicitModelBase):
             ops.assemble_diag(1.0 / (rho * c * c))
             + ops.facet_vector(self.ABC_TAG, delta / (rho * c**3))
         )
+        self.raw_stiff = {"coeff_u": 1.0 / rho, "coeff_v": delta / (rho * c * c)}
         self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
         self.consts["coeff_v"] = ops.stiff_coeff(delta / (rho * c * c))
         self.consts["kdiag_u"] = ops.stiffness_diag(1.0 / rho)

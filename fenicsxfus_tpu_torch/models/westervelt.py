@@ -23,6 +23,8 @@ class WesterveltSpectralExplicit(ExplicitModelBase):
 
     STIFF_KEYS = ("coeff_u", "coeff_v")
     FUSED_KIND = "westervelt"
+    # sharded uneven partitions divide by m = m0 − d2∘u on padding rows too
+    PAD_ONE_KEYS = ("m0",)
 
     def __init__(self, mesh, meshtags, degree, c0, rho0, delta0, beta0, freq0,
                  p0, s0, rk_order, dt, dtype=torch.float32, device="cuda"):
@@ -42,6 +44,7 @@ class WesterveltSpectralExplicit(ExplicitModelBase):
         )
         # nonlinear diagonal 2β/(ρ²c⁴)
         self.consts["d2"] = ops.to_device(ops.assemble_diag(2.0 * beta / (rho * rho * c**4)))
+        self.raw_stiff = {"coeff_u": 1.0 / rho, "coeff_v": delta / (rho * c * c)}
         self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
         self.consts["coeff_v"] = ops.stiff_coeff(delta / (rho * c * c))
         self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))

@@ -41,6 +41,12 @@ over ``pack_scales_nodal``'s scales (K1 takes only constant or DG-0
 coefficients; the JAX package runs this term in XLA too), on the general
 path the per-cell action with the coefficient's cell values at the
 quadrature points (``qcoeff``).
+
+Every assembled result passes through ``complete`` before it is returned:
+the lattice K1 path, the 1D/2D ``apply_scaled``, the hybrid path, the nodal
+apply and the folds ``scatter``/``scatter_segsum``. On one device it is the
+identity; the slab decomposition (``parallel/slab.py::HaloSEMOperators``)
+overrides it with the neighbour halo exchange, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -317,15 +323,15 @@ class SEMOperators:
             return self.scatter(y)
         x3 = [x.reshape(self.gdims) for x in xs]
         if self.d != 3:
-            return self.lattice.apply_scaled(list(zip(x3, coeffs))).reshape(-1)
+            return self.complete(self.lattice.apply_scaled(list(zip(x3, coeffs))).reshape(-1))
         if self.hybrid is None:
-            return self.stiffness_fn(x3, coeffs, self.degree).reshape(-1)
+            return self.complete(self.stiffness_fn(x3, coeffs, self.degree).reshape(-1))
         cs = [self.stiff_coeff(c) for c in coeffs]
         y = self.stiffness_fn(x3, [c["hyb_u"] for c in cs], self.degree)
         sx = self.hybrid["slab_x"]
         y[:sx] += self.band_correction_rows(
             [x[:sx] for x in x3], [c["hyb_b"] for c in cs], cs[0]["hyb_G"])
-        return y.reshape(-1)
+        return self.complete(y.reshape(-1))
 
     def pack_scales_nodal(self, coeff_nodal) -> tuple:
         """The lattice scales of a nodal (per-DOF) coefficient on the device
@@ -350,13 +356,19 @@ class SEMOperators:
             for x, cn in zip(xs, nodal_coeffs):
                 scales = cn if isinstance(cn, (tuple, list)) else self.pack_scales_nodal(cn)
                 pairs.append((x.reshape(self.gdims), scales))
-            return self.lattice.apply_scaled(pairs).reshape(-1)
+            return self.complete(self.lattice.apply_scaled(pairs).reshape(-1))
         y = None
         for x, cn in zip(xs, nodal_coeffs):
             cn = cn if isinstance(cn, torch.Tensor) else self.to_device(cn)
             yc = self._stiffness_cells(self.gather(x), qcoeff=self.gather(cn))
             y = yc if y is None else y + yc
         return self.scatter(y)
+
+    def complete(self, y: torch.Tensor) -> torch.Tensor:
+        """Finish a locally assembled vector. The identity on one device;
+        the slab decomposition's ``HaloSEMOperators`` adds the neighbours'
+        interface-plane partial sums (the JAX package's ``complete``)."""
+        return y
 
     def plain(self) -> "SEMOperators":
         """A shallow copy of these operators whose 3D stiffness runs
@@ -502,13 +514,13 @@ class SEMOperators:
         for dofs, table in self.fold_plan:
             k = table.numel() // dofs.numel()
             y.index_copy_(0, dofs, flat.index_select(0, table).view(-1, k).sum(1))
-        return y
+        return self.complete(y)
 
     def scatter_segsum(self, ycells: torch.Tensor) -> torch.Tensor:
         """Sorted segment-sum assembly (the oracle of ``scatter``, the JAX
         package's ``segment_sum`` over the sorted plan)."""
         flat = ycells.reshape(-1).index_select(0, self.perm)
-        return torch.segment_reduce(flat, "sum", lengths=self.seglens)
+        return self.complete(torch.segment_reduce(flat, "sum", lengths=self.seglens))
 
     def gather_combine(self, xs, coeffs) -> torch.Tensor:
         """Gather fields and combine with per-cell DG-0 coefficients:

@@ -291,19 +291,20 @@ def _imported_modules(path: Path):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """No module of the port and not ``chip_smoke.py`` imports jax or the
-    JAX package (read from their import statements), and importing the new
+    """No module of the port and not ``chip_smoke.py`` imports jax, the JAX
+    package or ``benchmarks/`` (read from their import statements), and importing the new
     modules leaves jax out of ``sys.modules``."""
     files = sorted((REPO / "fenicsxfus_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 40
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "fenicsxfus_tpu"), (path, mod)
+            assert top not in ("jax", "jaxlib", "fenicsxfus_tpu", "benchmarks"), (path, mod)
     code = (
         "import sys; import fenicsxfus_tpu_torch, fenicsxfus_tpu_torch.models.experimental, "
         "fenicsxfus_tpu_torch.ops.quadrature_ops, fenicsxfus_tpu_torch.analysis.timing, "
-        "fenicsxfus_tpu_torch.io.checkpoint; "
+        "fenicsxfus_tpu_torch.io.checkpoint, fenicsxfus_tpu_torch.parallel, "
+        "fenicsxfus_tpu_torch.parallel.runs, fenicsxfus_tpu_torch.examples.sharded_planewave3d; "
         "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'fenicsxfus_tpu')], "
         "sorted(m for m in sys.modules if 'jax' in m)"
     )

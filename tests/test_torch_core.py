@@ -23,6 +23,7 @@ from fenicsxfus_tpu_torch.core import gll as tgll
 from fenicsxfus_tpu_torch.core import mesh as tmesh
 from fenicsxfus_tpu_torch.core import space as tspace
 import fenicsxfus_tpu_torch as ft
+from fenicsxfus_tpu_torch import parallel
 from fenicsxfus_tpu_torch.convert import state_from_numpy
 from fenicsxfus_tpu_torch.drivers import hitu
 from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
@@ -161,7 +162,7 @@ def test_port_imports_no_jax():
     scripts = sorted(f"fenicsxfus_tpu_torch.{sub}.{f.stem}"
                      for sub in ("examples", "experiments")
                      for f in (REPO / "fenicsxfus_tpu_torch" / sub).glob("[!_]*.py"))
-    assert len(scripts) == 27
+    assert len(scripts) == 28  # 23 examples (the sharded one included) and exp1-5
     tools = ", ".join(f"fenicsxfus_tpu_torch.tools.{t}" for t in (
         "operator_speed", "solver_speed", "stage_attrib", "hybrid_speed", "bounds",
         "setup_speed", "phase_breakdown", "wave_attrib", "unstructured_speed",
@@ -177,6 +178,7 @@ def test_port_imports_no_jax():
         "fenicsxfus_tpu_torch.ops.stage_ab, fenicsxfus_tpu_torch.ops.step_wave, "
         "fenicsxfus_tpu_torch.ops.cg, fenicsxfus_tpu_torch.core.conn, "
         "fenicsxfus_tpu_torch.tools.unstructured_solve, chip_smoke, "
+        "fenicsxfus_tpu_torch.parallel, fenicsxfus_tpu_torch.parallel.runs, "
         f"fenicsxfus_tpu_torch.drivers.mendousse, {tools}, {', '.join(scripts)}; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fenicsxfus_tpu', 'examples', 'experiments', 'benchmarks')]; "
@@ -222,6 +224,25 @@ ENTRY_POINTS.update({
     name: (lambda name=name, kw=kw: importlib.import_module(
         f"fenicsxfus_tpu_torch.{name}").main(**kw))
     for name, kw in BENCH_MAINS.items()})
+
+
+def _cpu_model(cls):
+    return cls(_box(), device="cpu", **{**_MODEL_ARGS, "rk_order": 2})
+
+
+# the slab decomposition's entry points (no process group is needed to see
+# the device refused: the device is resolved first)
+ENTRY_POINTS.update({
+    "parallel.ShardedExplicitSolver": lambda: parallel.ShardedExplicitSolver(
+        _cpu_model(ft.LinearSpectralExplicit)),
+    "parallel.ShardedImplicitSolver": lambda: parallel.ShardedImplicitSolver(
+        _cpu_model(ft.LinearSpectralImplicit)),
+    "parallel.build_sharded": lambda: parallel.build_sharded(
+        lambda m: None, (2, 2, 2), (0, 0, 0), (1, 1, 1), 2, None, torch.float64),
+    "parallel.spawn": lambda: parallel.spawn(print, 1),
+    "examples.sharded_planewave3d": lambda: importlib.import_module(
+        "fenicsxfus_tpu_torch.examples.sharded_planewave3d").main(nx=2, world=1),
+})
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
