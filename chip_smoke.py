@@ -238,6 +238,29 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    ``drivers.ph1.validate(1, 1, 40, 56)`` (a side job), its stamp read back
    from ``--out``.
 
+21. the grid and unstructured decompositions (``parallel/grid.py``,
+   ``parallel/unstructured.py``): (a) at world size 1 over NCCL, run where
+   their models are built: at the end of [11], after [20a],
+   ``ShardedExplicitSolver2D(model, (1, 1))`` on the headline box for 20 RK4
+   steps from [11]'s state, bit for bit [20a]'s slab run, K1 4 times a step
+   and no other kernel, its rate beside [20a]'s and its memory peak; in [15],
+   ``ShardedUnstructuredExplicitSolver(model, 1)`` on the distorted box
+   (10.2M DOF, Westervelt, fp32) over [15]'s 60 steps against [15]'s run
+   (rel-L2 1e-5; the max rel and whether bit for bit printed), no kernel,
+   its rate beside [15]'s and its memory peak; (b) the side jobs ``grid:4``
+   (a (2, 2) grid of gloo ranks on the card against world size 1 over NCCL:
+   linear and Westervelt on 13 × 11 × 12 cells at p = 4, uneven on both
+   partitioned axes, from a line pulse on the column the four blocks share,
+   40 RK4 steps recorded on and off that column, fp32 and fp64; the linear
+   implicit model, fp64; the sponge, fp64; then ``dryrun_multichip(4,
+   "gloo", "cuda")``) and ``unstructured:2`` (two gloo ranks on the
+   distorted, scrambled 16 × 12 × 12 box: linear and Westervelt, fp32 and
+   fp64, recorded; the implicit model, fp64), held to [20b]'s gates (the
+   unstructured fp32 direct gap within 1.5 times the one-rank run's
+   distance from fp64, the grid's within 1.0 times, as [20b]'s), and K1 on
+   each grid rank's own operands of each case against its plain version
+   (fp64 1e-14, fp32 5e-7), timed, with that rank's launches.
+
 Each phase prints its wall time. Every kernel wrapper counts its launches;
 the counts are set to 0 just before a main path runs and read just after.
 The line before the last is one JSON object with the per-kernel numbers
@@ -1156,6 +1179,7 @@ def phase_unfused_headline(device, card, nx) -> dict:
         raise AssertionError("the unfused headline through K4a -> K4b differs from K1's")
     out = {k: {n: r[n] for n in ("launches", "rate", "solve_s")} for k, r in runs.items()}
     out["sharded"] = phase_sharded_headline(device, card, model, u0, v0, runs["1"], nsteps)
+    out["grid"] = phase_grid_headline(device, card, model, u0, v0, out["sharded"], nsteps)
     return out
 
 
@@ -2043,7 +2067,8 @@ def phase_general_solve(device, card) -> dict:
         f"{rel_l2:.3e} (gate 1e-5); fp64 build and run {t64:.1f} s")
     if not rel_l2 <= 1e-5:
         raise AssertionError(f"[15] the fp32 general run drifts from fp64: {rel_l2:.3e}")
-    return {"res": res, "gap": gap, "peak_gib": peak_gib, "ops64": m64.ops}
+    split = phase_split_general(device, card, res[1])
+    return {"res": res, "gap": gap, "peak_gib": peak_gib, "ops64": m64.ops, "split": split}
 
 
 def phase_general_ops(device, card, ops32, ops64) -> dict:
@@ -2280,7 +2305,7 @@ def k1_on_operands(Fs, gdims, p, card, tag) -> dict:
         f"{share_text(bound, ms)} (median of 10, CUDA events; {card})")
     if not rel <= (TOL64 if dtype == torch.float64 else TOL):
         raise AssertionError(f"{tag} K1 disagrees with its plain version: {rel:.3e}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bound}
+    return {"max_abs_err": err, "rel": rel, "ms": ms, "plain_ms": pms, **bound}
 
 
 def explicit_against_plain(model, tag: str, steps: int = 3, gate: float = TOL) -> float:
@@ -3081,14 +3106,17 @@ def phase_ph1(device, card) -> dict:
 # timed tool runs until the side jobs have ended).
 VALIDATE_NX = (40, 56)  # [20c]: the nx pair of the PH1 stamp (a side job, under 60 s)
 SIDE_JOBS = ("drift:linear", "drift:westervelt", "convergence:20", "convergence:28",
-             "convergence:36", "slab:2", f"validate:{VALIDATE_NX[0]}-{VALIDATE_NX[1]}")
+             "convergence:36", "slab:2", f"validate:{VALIDATE_NX[0]}-{VALIDATE_NX[1]}",
+             "grid:4", "unstructured:2")
 
 
 def side_worker(job: str, path: str) -> None:
     """One side job in its own process (``python -c "import chip_smoke;
     chip_smoke.side_worker(job, path)"``): ``fp32_drift.drift`` of a kind
     to 8000 steps, ``bowl_convergence.main`` at one nx, [20b]'s slab runs
-    (``slab_job``) or [20c]'s PH1 stamp (``validate_job``), on the card,
+    (``slab_job``), [20c]'s PH1 stamp (``validate_job``) or [21b]'s grid
+    runs and dry run (``grid_job``) or unstructured runs
+    (``unstructured_job``), on the card,
     with the launch counts from 0 just before it and read just after; the
     result, seconds and counts saved as JSON to ``path`` (written under
     another name, then renamed into place)."""
@@ -3106,6 +3134,10 @@ def side_worker(job: str, path: str) -> None:
         out = {"rows": slab_job(int(arg), path + ".k1.pt"), "operands": path + ".k1.pt"}
     elif what == "validate":
         out = validate_job(*(int(n) for n in arg.split("-")))
+    elif what == "grid":
+        out = grid_job(int(arg), path + ".k1.pt")
+    elif what == "unstructured":
+        out = {"rows": unstructured_job(int(arg))}
     else:
         from fenicsxfus_tpu_torch.drivers import bowl_convergence
 
@@ -4110,7 +4142,7 @@ def phase_sharded_headline(device, card, model, u0, v0, ref, nsteps) -> dict:
     if not (rel <= SHARDED_TOL and bool(torch.isfinite(u).all())):
         raise AssertionError(f"[20a] the sharded headline differs from the unfused run: {rel:.3e}")
     return {"launches": launches, "rate": rate, "solve_s": solve, "setup_s": setup,
-            "peak_gib": peak, "rel": rel, "bit_equal": same}
+            "peak_gib": peak, "rel": rel, "bit_equal": same, "u": u}
 
 
 def phase_sharded_implicit(device, card, model) -> dict:
@@ -4206,12 +4238,26 @@ def slab_job(world: int, operands: str) -> list:
     cases = slab_cases()
     one = spawn(runs.run_cases, 1, "nccl", "cuda", args=(cases,))[0]
     many = spawn(runs.run_cases, world, "gloo", "cuda", args=(cases,))
+    torch.save({spec["name"]: [ranks[i].pop("k1_operands") for ranks in many]
+                for i, spec in enumerate(cases)}, operands)
+    rows = rank_rows(cases, one, many)
+    ex = sharded_planewave3d.main()
+    rows.append({"name": "examples.sharded_planewave3d", "ndev": ex["ndev"],
+                 "ndofs": ex["ndofs"], "max_u": ex["max_u"],
+                 "finite": bool(np.all(np.isfinite(ex["u"])))})
+    return rows
+
+
+def rank_rows(cases, one, many) -> list:
+    """Per case, the many-rank run (``many``: each rank's results) against
+    world size 1 (``one``): the distance of each field, whether the ranks
+    hold the same bits, each rank's K1 launches, the marches' seconds, the
+    CG counts, and for an fp32 case both runs' distance from the fp64
+    one-rank run of the same name."""
 
     def rel(a, b):
         return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
 
-    torch.save({spec["name"]: [ranks[i].pop("k1_operands") for ranks in many]
-                for i, spec in enumerate(cases)}, operands)
     by_name = {r["name"]: r for r in one}
     rows = []
     for i, (spec, a) in enumerate(zip(cases, one)):
@@ -4221,18 +4267,60 @@ def slab_job(world: int, operands: str) -> list:
                "rel": {k: rel(b[0][k], a[k]) for k in keys},
                "ranks_equal": all(np.array_equal(r[k], b[0][k]) for r in b for k in keys),
                "k1": [r["k1"] for r in b], "k1_one": a["k1"],
-               "seconds": [a["seconds"], b[0]["seconds"]]}
+               "seconds": [a["seconds"], b[0]["seconds"]],
+               "local_ndofs": [r["local_ndofs"] for r in b]}
         if "cg" in a:
             row["cg"] = [a["cg"], b[0]["cg"]]
         if spec["dtype"] == "float32":
             ref = by_name[spec["name"].replace("float32", "float64")]
             row["vs_fp64"] = {k: [rel(a[k], ref[k]), rel(b[0][k], ref[k])] for k in keys}
         rows.append(row)
-    ex = sharded_planewave3d.main()
-    rows.append({"name": "examples.sharded_planewave3d", "ndev": ex["ndev"],
-                 "ndofs": ex["ndofs"], "max_u": ex["max_u"],
-                 "finite": bool(np.all(np.isfinite(ex["u"])))})
     return rows
+
+
+def check_rank_rows(tag: str, rows, nranks: int, card: str, steps: int, k1: bool = True,
+                    direct: float = 1.0) -> None:
+    """[20b]'s and [21b]'s gates on ``rank_rows``: fp64 within 1e-11 of
+    world size 1; in fp32 the one-rank run within FP32_FROM_FP64 of the fp64
+    run, the many-rank run within FP32_SPLIT times that distance of it and
+    within ``direct`` times that distance of the one-rank run ([20b] and
+    [21b]'s grid 1.0, [21b]'s unstructured split FP32_SPLIT), sensor traces within SENSOR_TOL; the CG counts
+    within 2; the ranks' bits equal; K1 the same count on every rank, 4 a
+    step of a recorded run (``k1``), or never launched (the general path:
+    not ``k1``)."""
+    for row in rows:
+        gate = 1e-11 if row["dtype"] == "float64" else None
+        rel = ", ".join(f"{k} {v:.3e}" for k, v in row["rel"].items())
+        extra = ""
+        if "vs_fp64" in row:
+            extra = (f"; from the fp64 run, one rank against {nranks} (gates {FP32_FROM_FP64}, "
+                     f"{nranks} ranks at most {FP32_SPLIT}x one, the direct gap at most "
+                     f"{direct}x one): " + ", ".join(
+                         f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in row["vs_fp64"].items()))
+        fp32_gate = f"fp32: the one-rank run's distance from fp64, ys {SENSOR_TOL:g}"
+        say(f"{tag} {row['name']} ({row['run']}): {nranks} gloo ranks against world size 1 "
+            f"(NCCL) max|d|/max|ref| {rel} (gate {gate or fp32_gate}){extra}; K1 "
+            f"launches per rank {row['k1']} (world size 1: {row['k1_one']})"
+            + (f"; worst CG iterations {row['cg']}" if "cg" in row else "")
+            + f"; DOFs per rank {row['local_ndofs']}; ranks equal {row['ranks_equal']}; "
+            f"{row['seconds'][1]:.2f} s ({card})")
+        ok = row["ranks_equal"] and len(set(row["k1"])) == 1
+        if k1:
+            ok &= row["k1"][0] > 0
+            if row["run"] == "rk_record":
+                ok &= row["k1"][0] == row["k1_one"] == 4 * steps
+        else:
+            ok &= row["k1"][0] == row["k1_one"] == 0
+        if gate is not None:
+            ok &= all(v <= gate for v in row["rel"].values())
+        else:
+            ok &= all(a <= FP32_FROM_FP64[k] and b <= FP32_SPLIT * a
+                      and row["rel"][k] <= direct * a for k, (a, b) in row["vs_fp64"].items())
+            ok &= row["rel"].get("ys", 0.0) <= SENSOR_TOL
+        if "cg" in row:
+            ok &= abs(row["cg"][0] - row["cg"][1]) <= 2
+        if not ok:
+            raise AssertionError(f"{tag} {row['name']}: {row}")
 
 
 def validate_job(nx: int, nx_fine: int) -> dict:
@@ -4288,33 +4376,7 @@ def phase_sharded(device, card, side: SideJobs, explicit, implicit, sc1_bm1) -> 
         f"{ex['ndofs']} DOF, max|u| = {ex['max_u']:.1f}, finite {ex['finite']}")
     if not (ex["finite"] and ex["max_u"] > 0):
         raise AssertionError(f"[20b] the sharded example: {ex}")
-    for row in rows:
-        gate = 1e-11 if row["dtype"] == "float64" else None
-        rel = ", ".join(f"{k} {v:.3e}" for k, v in row["rel"].items())
-        extra = ""
-        if "vs_fp64" in row:
-            extra = (f"; from the fp64 run, one rank against two (gates {FP32_FROM_FP64}, two "
-                     f"ranks at most {FP32_SPLIT}x one): " + ", ".join(
-                         f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in row["vs_fp64"].items()))
-        fp32_gate = f"fp32: the one-rank run's distance from fp64, ys {SENSOR_TOL:g}"
-        say(f"[20b] {row['name']} ({row['run']}): 2 gloo ranks against world size 1 (NCCL) "
-            f"max|d|/max|ref| {rel} (gate {gate or fp32_gate}){extra}; K1 "
-            f"launches per rank {row['k1']} (world size 1: {row['k1_one']})"
-            + (f"; worst CG iterations {row['cg']}" if "cg" in row else "")
-            + f"; ranks equal {row['ranks_equal']}; {row['seconds'][1]:.2f} s ({card})")
-        ok = row["ranks_equal"] and len(set(row["k1"])) == 1 and row["k1"][0] > 0
-        if row["run"] == "rk_record":
-            ok &= row["k1"][0] == row["k1_one"] == 4 * SLAB_STEPS
-        if gate is not None:
-            ok &= all(v <= gate for v in row["rel"].values())
-        else:
-            ok &= all(a <= FP32_FROM_FP64[k] and b <= FP32_SPLIT * a and row["rel"][k] <= a
-                      for k, (a, b) in row["vs_fp64"].items())
-            ok &= row["rel"].get("ys", 0.0) <= SENSOR_TOL
-        if "cg" in row:
-            ok &= abs(row["cg"][0] - row["cg"][1]) <= 2
-        if not ok:
-            raise AssertionError(f"[20b] {row['name']}: {row}")
+    check_rank_rows("[20b]", rows, 2, card, SLAB_STEPS)
     k1 = []
     with uncounted():
         for row in rows:
@@ -4348,6 +4410,269 @@ def phase_sharded(device, card, side: SideJobs, explicit, implicit, sc1_bm1) -> 
     say(f"[20] done in {time.perf_counter() - t_phase:.1f} s")
     return {"explicit": explicit, "implicit": implicit, "ranks": {"rows": rows, "example": ex},
             "k1": k1, "focal": fc, "stamp": stamp}
+
+
+# ------------------------------------ [21] the grid and unstructured decompositions
+GRID_STEPS = SLAB_STEPS  # [21b]: RK4 steps of each recorded case
+# [21b]: K1 on a grid rank's own operands against its plain version,
+# max|dy|/max|y|: fp64 1e-14; fp32 5e-7, about 4 ulp of max|y| (the two
+# summation orders differ by 1-2 ulp: 1.06e-7 to 2.12e-7 read on the grid
+# ranks, fp32 K1's 2e-7 target of the slab ranks in [20b] not met by 5 of 8)
+GRID_K1_TOL = {"float32": 5e-7, "float64": 1e-14}
+GRID_K1_TARGET = {"float32": 2e-7, "float64": 1e-14}  # read out beside the gate
+
+
+def phase_grid_headline(device, card, model, u0, v0, slab: dict, nsteps) -> dict:
+    """[21a] (run at the end of [11], after [20a], on its model and random
+    state) ``ShardedExplicitSolver2D(model, (1, 1))`` at world size 1 over
+    NCCL on the headline box (72,511,713 DOF, fp32): UNFUSED_STEPS RK4 steps
+    from [11]'s state, bit for bit [20a]'s slab run, K1 4 times a step and
+    no other kernel; the rate beside [20a]'s and the device memory peak."""
+    import torch
+
+    from fenicsxfus_tpu_torch.parallel import ShardedExplicitSolver2D, process_group
+
+    ref = slab.pop("u")
+    with process_group("nccl"):
+        t0 = time.perf_counter()
+        solver = ShardedExplicitSolver2D(model, (1, 1), device=device)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        model.u_n, model.v_n = u0.clone(), v0.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        # --- the main path: counts from 0 just before, read just after
+        reset_counts()
+        t0 = time.perf_counter()
+        u, _, _ = solver.rk(0.0, UNFUSED_STEPS * model.dt)
+        torch.cuda.synchronize()
+        solve = time.perf_counter() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+    rate = model.number_of_dofs() * nsteps / solve / 1e9
+    same = torch.equal(u, ref)
+    rel = rel_err(u, ref)[0]
+    say(f"[21a] ShardedExplicitSolver2D (1, 1), world size 1 over NCCL, headline "
+        f"{model.ops.gdims}: setup {setup:.3f} s, {nsteps} RK4 steps in {solve:.3f} s, "
+        f"{rate:.4f} GDOF-RK4-updates/s against [20a]'s {slab['rate']:.4f}; K1 launches "
+        f"{launches['K1']} ({launches['K1'] / nsteps:.0f} a step); device memory peak "
+        f"{peak:.3f} GiB; against [20a]'s slab run max|du|/max|u| = {rel:.3e}, bit for bit: "
+        f"{same} ({card})")
+    if launches["K1"] != 4 * nsteps or any(launches[k] for k in ("K4a", "K4b") + STAGE_KERNELS):
+        raise AssertionError(f"[21a] expected K1 4 times a step and no other kernel: {launches}")
+    if not (same and bool(torch.isfinite(u).all())):
+        raise AssertionError(f"[21a] the (1, 1) grid is not [20a]'s slab run bit for bit: {rel:.3e}")
+    return {"launches": launches, "rate": rate, "solve_s": solve, "setup_s": setup,
+            "peak_gib": peak, "bit_equal": same}
+
+
+def phase_split_general(device, card, run: dict) -> dict:
+    """[21a] (run in [15], on its distorted-box model)
+    ``ShardedUnstructuredExplicitSolver(model, 1)`` at world size 1 over
+    NCCL (10,218,313 DOF, Westervelt, fp32): GENERAL_STEPS RK4 steps from
+    zero after a warm-up on the same window, as [15] ran them, against
+    [15]'s single-device run (rel-L2 within 1e-5, [15]'s gate on fp32
+    against fp64; the max rel and whether bit for bit printed); no kernel
+    launched (the general path); the rate beside [15]'s and the memory
+    peak."""
+    import torch
+
+    from fenicsxfus_tpu_torch.parallel import ShardedUnstructuredExplicitSolver, process_group
+
+    model, ref = run["model"], run["u"]
+    tf = GENERAL_STEPS * model.dt
+    with process_group("nccl"):
+        t0 = time.perf_counter()
+        solver = ShardedUnstructuredExplicitSolver(model, 1, device=device)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        model.init()
+        solver.rk(0.0, tf)  # warm-up on the identical window
+        model.init()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        # --- the main path: counts from 0 just before, read just after
+        reset_counts()
+        t0 = time.perf_counter()
+        u, _, _ = solver.rk(0.0, tf)
+        torch.cuda.synchronize()
+        solve = time.perf_counter() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+    rate = model.number_of_dofs() * GENERAL_STEPS / solve / 1e9
+    rel_l2 = float(torch.linalg.vector_norm((u - ref).double())
+                   / torch.linalg.vector_norm(ref.double()))
+    rel = rel_err(u, ref)[0]
+    same = torch.equal(u, ref)
+    say(f"[21a] ShardedUnstructuredExplicitSolver, world size 1 over NCCL, [15]'s distorted box "
+        f"({model.number_of_dofs()} DOF, fp32): setup {setup:.3f} s, {GENERAL_STEPS} RK4 steps "
+        f"in {solve:.3f} s, {rate:.4f} GDOF-RK4-steps/s against [15]'s "
+        f"{run['gdof_steps_per_s']:.4f}; against [15]'s run rel-L2 {rel_l2:.3e} (gate 1e-5), max "
+        f"rel {rel:.3e}, bit for bit: {same}; device memory peak {peak:.3f} GiB; launches "
+        f"{launches} ({card})")
+    if launches["K1"] or any(launches[k] for k in ("K4a", "K4b") + STAGE_KERNELS):
+        raise AssertionError(f"[21a] the unstructured split launched a kernel: {launches}")
+    if not (rel_l2 <= 1e-5 and bool(torch.isfinite(u).all())):
+        raise AssertionError(f"[21a] the unstructured split differs from [15]'s run: {rel_l2:.3e}")
+    return {"rate": rate, "solve_s": solve, "setup_s": setup, "peak_gib": peak,
+            "rel_l2": rel_l2, "rel": rel, "bit_equal": same}
+
+
+def grid_cases(dshape) -> list:
+    """[21b]'s grid cases (``parallel/runs.py``) on a ``dshape`` grid of
+    ranks: ``LinearSpectralExplicit`` and ``WesterveltSpectralExplicit`` on
+    13 × 11 × 12 cells (h = 1/12, O(1) coefficients, p = 4, 116,865 DOF;
+    7 + 6 and 6 + 5 cells on a (2, 2) grid) from a Gaussian line pulse of u
+    on the column the four blocks share, GRID_STEPS RK4 steps recorded at
+    sensors on that column (on and off the nodes) and off it, each fp32 and
+    fp64; ``LinearSpectralImplicit``, SHARDED_IMPLICIT_STEPS SDIRK4 steps,
+    fp64; ``LinearSpectralSponge`` (its nodal δ), GRID_STEPS steps, fp64."""
+    h = SLAB_H
+    dt = 0.5 * h / 16
+    grid = (13, 11, 12)
+    x_if, y_if = 7 * h, 6 * h
+    box = ("box", grid, (0.0, 0.0, 0.0), (grid[0] * h, grid[1] * h, 1.0))
+    pts = np.array([[x_if, x_if, x_if - 0.03, x_if + 0.04, x_if - 0.1],
+                    [y_if, y_if, y_if + 0.02, y_if - 0.05, y_if + 0.1],
+                    [0.5, 0.37, 0.43, 0.61, 0.5]])
+    c = 1.0 + 0.1 * np.random.default_rng(21).random(int(np.prod(grid)))
+    common = dict(mesh=box, tag_L=grid[0] * h, decomp="grid", dshape=dshape,
+                  u0=([x_if, y_if], 0.2, 0.05), k1_operands=True)
+    out = []
+    for dtype in ("float32", "float64"):
+        for kind, cls, args in (
+                ("linear", "LinearSpectralExplicit", (4, c, 1.0, 2.0, 1.0, 1.0, 4, dt)),
+                ("westervelt", "WesterveltSpectralExplicit",
+                 (4, c, 1.0, 1e-3, 3.5, 2.0, 1.0, 1.0, 4, dt))):
+            out.append(dict(common, name=f"grid {kind} {dtype}", model=cls, args=args,
+                            dtype=dtype, run="rk_record", t_end=GRID_STEPS * dt, points=pts))
+    out.append(dict(common, name="grid implicit float64", model="LinearSpectralImplicit",
+                    args=(4, c, 1.0, 2.0, 1.0, 1.0, 4, 4 * dt), dtype="float64", run="dirk",
+                    t_end=SHARDED_IMPLICIT_STEPS * 4 * dt))
+    out.append(dict(common, name="grid sponge float64", model="LinearSpectralSponge",
+                    args=(4, 1.0, 1.0, 1e-2, 2.0, 1.0, 1.0), kwargs={"sponge_start": 0.6},
+                    dt=dt, dtype="float64", run="rk", t_end=GRID_STEPS * dt))
+    return out
+
+
+def grid_job(world: int, operands: str) -> dict:
+    """[21b] in a side process: ``grid_cases`` on a (1, 1) grid at world
+    size 1 over NCCL and on a (2, 2) grid of ``world`` gloo ranks on the one
+    card (their planes through host buffers), each a ``spawn``
+    (``rank_rows``); the operands each gloo rank's K1 got, per case, saved to
+    ``operands`` for ``phase_split`` to hold and time; then
+    ``dryrun_multichip(world, "gloo", "cuda")``."""
+    import torch
+
+    from fenicsxfus_tpu_torch.parallel import dryrun, runs, spawn
+
+    side = int(round(world ** 0.5))
+    cases = grid_cases((side, world // side))
+    one = spawn(runs.run_cases, 1, "nccl", "cuda", args=(grid_cases((1, 1)),))[0]
+    many = spawn(runs.run_cases, world, "gloo", "cuda", args=(cases,))
+    torch.save({spec["name"]: [ranks[i].pop("k1_operands") for ranks in many]
+                for i, spec in enumerate(cases)}, operands)
+    for r in one:
+        r.pop("k1_operands", None)
+    rows = rank_rows(cases, one, many)
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(world, "gloo", "cuda")
+    return {"rows": rows, "operands": operands, "dshape": cases[0]["dshape"],
+            "dryrun": {"seconds": time.perf_counter() - t0, "parts": dry[0],
+                       "finite": all(r["finite"] for rank in dry for r in rank.values())}}
+
+
+def unstructured_cases() -> list:
+    """[21b]'s unstructured cases: the box of 16 × 12 × 12 cells (h = 1/12,
+    p = 4, 156,065 DOF) with its interior vertices jittered by 0.15 h and
+    its vertex ids permuted (seeded; no ``grid_shape``: the entity-blocked
+    numbering), split by ``partition_tables`` (``auto``), from a Gaussian
+    pulse of u on x = 8 h, ``LinearSpectralExplicit`` and
+    ``WesterveltSpectralExplicit`` recorded at sensors on and beside that
+    plane over GRID_STEPS RK4 steps, fp32 and fp64; ``LinearSpectralImplicit``
+    SHARDED_IMPLICIT_STEPS SDIRK4 steps, fp64."""
+    h = SLAB_H
+    dt = 0.5 * h / 16
+    grid = (16, 12, 12)
+    x_if = 8 * h
+    mesh = ("jittered", grid, (0.0, 0.0, 0.0), (grid[0] * h, 1.0, 1.0), 17, 0.15 * h, True)
+    pts = np.array([[x_if - 0.1, x_if, x_if + 0.1, x_if - 0.03, x_if + 0.04],
+                    [0.5, 0.5, 0.5, 0.43, 0.61], [0.5, 0.5, 0.5, 0.57, 0.38]])
+    c = 1.0 + 0.1 * np.random.default_rng(22).random(int(np.prod(grid)))
+    common = dict(mesh=mesh, tag_L=grid[0] * h, decomp="unstructured", u0=([x_if], 0.2, 0.05))
+    out = []
+    for dtype in ("float32", "float64"):
+        for kind, cls, args in (
+                ("linear", "LinearSpectralExplicit", (4, c, 1.0, 2.0, 1.0, 1.0, 4, dt)),
+                ("westervelt", "WesterveltSpectralExplicit",
+                 (4, c, 1.0, 1e-3, 3.5, 2.0, 1.0, 1.0, 4, dt))):
+            out.append(dict(common, name=f"unstructured {kind} {dtype}", model=cls, args=args,
+                            dtype=dtype, run="rk_record", t_end=GRID_STEPS * dt, points=pts))
+    out.append(dict(common, name="unstructured implicit float64", model="LinearSpectralImplicit",
+                    args=(4, c, 1.0, 2.0, 1.0, 1.0, 4, 4 * dt), dtype="float64", run="dirk",
+                    t_end=SHARDED_IMPLICIT_STEPS * 4 * dt))
+    return out
+
+
+def unstructured_job(world: int) -> list:
+    """[21b] in a side process: ``unstructured_cases`` at world size 1 over
+    NCCL and on ``world`` gloo ranks on the one card (the shared rows'
+    ``all_reduce`` through host buffers), each a ``spawn``; ``rank_rows``."""
+    from fenicsxfus_tpu_torch.parallel import runs, spawn
+
+    cases = unstructured_cases()
+    one = spawn(runs.run_cases, 1, "nccl", "cuda", args=(cases,))[0]
+    many = spawn(runs.run_cases, world, "gloo", "cuda", args=(cases,))
+    return rank_rows(cases, one, many)
+
+
+def phase_split(device, card, side: SideJobs) -> dict:
+    """[21b]: the side jobs ``grid:4`` (a (2, 2) grid of gloo ranks on the
+    card against world size 1 over NCCL, then the dry run) and
+    ``unstructured:2`` (two gloo ranks), each row held by
+    ``check_rank_rows`` ([20b]'s gates, the fp32 direct gap within
+    FP32_SPLIT of the one-rank run's distance from fp64 on the
+    unstructured split, 1.0 on the grid; no kernel on the unstructured
+    path); K1 on each grid rank's own operands of each case against its
+    plain version (within GRID_K1_TOL) and timed, with that rank's
+    launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    res = side.result("grid:4")
+    dry = res["dryrun"]
+    say(f"[21b] the side job grid:4 took {res['seconds']:.1f} s (one NCCL rank, a "
+        f"{tuple(res['dshape'])} grid of gloo ranks on the card, then the dry run)")
+    check_rank_rows("[21b]", res["rows"], 4, card, GRID_STEPS)
+    say(f"[21b] dryrun_multichip(4, 'gloo', 'cuda'): {dry['seconds']:.1f} s, parts "
+        f"{sorted(dry['parts'])}, every field finite on every rank: {dry['finite']}")
+    if not (dry["finite"] and "grid 2x2" in dry["parts"] and "unstructured_record" in dry["parts"]):
+        raise AssertionError(f"[21b] the dry run: {dry}")
+    un = side.result("unstructured:2")
+    say(f"[21b] the side job unstructured:2 took {un['seconds']:.1f} s (one NCCL rank, then two "
+        "gloo ranks on the card)")
+    check_rank_rows("[21b]", un["rows"], 2, card, GRID_STEPS, k1=False, direct=FP32_SPLIT)
+    operands = torch.load(res["operands"])
+    k1 = []
+    with uncounted():
+        for row in res["rows"]:
+            for rank, ops in enumerate(operands[row["name"]]):
+                Fs = [{k: f.to(device) for k, f in F.items()} for F in ops["F"]]
+                m = k1_on_operands(Fs, ops["gdims"], ops["degree"], card,
+                                   f"[21b] {row['name']}, grid rank {rank}'s own operands:")
+                if not m["rel"] <= GRID_K1_TOL[row["dtype"]]:
+                    raise AssertionError(f"[21b] K1 on {row['name']} rank {rank}: {m['rel']:.3e} "
+                                         f"(gate {GRID_K1_TOL[row['dtype']]:g})")
+                k1.append({**m, "case": row["name"], "rank": rank, "gdims": ops["gdims"],
+                           "fields": len(Fs), "launches": row["k1"][rank], "dtype": row["dtype"]})
+    for dtype, tol in GRID_K1_TOL.items():
+        rels = [m["rel"] for m in k1 if m["dtype"] == dtype]
+        say(f"[21b] K1 on the grid ranks' own operands, {dtype}: max|dy|/max|y| "
+            f"{min(rels):.3e}-{max(rels):.3e} over {len(rels)} holds (gate {tol:g}); within "
+            f"{GRID_K1_TARGET[dtype]:g}: {sum(r <= GRID_K1_TARGET[dtype] for r in rels)} of "
+            f"{len(rels)}")
+    say(f"[21] done in {time.perf_counter() - t_phase:.1f} s")
+    return {"grid": res["rows"], "unstructured": un["rows"], "dryrun": dry, "k1": k1}
 
 
 def main() -> int:
@@ -4396,6 +4721,7 @@ def main() -> int:
         bench = phase_bench(device, card, side)
         sharded = phase_sharded(device, card, side, two["unfused"]["sharded"],
                                 implicit["headline"]["sharded"], prod["ph1"][(1, 1)])
+        split = phase_split(device, card, side)
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
     # from phase [11], K3 from phase [12] (HITU for focused, the headline
@@ -4531,6 +4857,16 @@ def main() -> int:
                       f"{m['rank']} {m['gdims']} {m['fields']} field(s)", "stiffness.cu",
                       "fenicsxfus_tpu/ops/pallas_v3.py:276", m["launches"], m)
                 for m in sharded["k1"]]
+    # K1 on [21]'s grid: world size 1 over NCCL at the headline (its timing
+    # [2]'s at that lattice), and a (2, 2) grid of gloo ranks on the card
+    # (each case and rank held and timed on that rank's own operands)
+    kernels.append(entry("stiffness_apply (K1), grid (1, 1), world size 1 (NCCL)", "stiffness.cu",
+                         "fenicsxfus_tpu/ops/pallas_v3.py:276",
+                         two["unfused"]["grid"]["launches"]["K1"], k1))
+    kernels += [entry(f"stiffness_apply (K1), (2, 2) grid of gloo ranks on one card, {m['case']}, "
+                      f"rank {m['rank']} {m['gdims']} {m['fields']} field(s)", "stiffness.cu",
+                      "fenicsxfus_tpu/ops/pallas_v3.py:276", m["launches"], m)
+                for m in split["k1"]]
     say(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -45,8 +45,10 @@ quadrature points (``qcoeff``).
 Every assembled result passes through ``complete`` before it is returned:
 the lattice K1 path, the 1D/2D ``apply_scaled``, the hybrid path, the nodal
 apply and the folds ``scatter``/``scatter_segsum``. On one device it is the
-identity; the slab decomposition (``parallel/slab.py::HaloSEMOperators``)
-overrides it with the neighbour halo exchange, as the JAX package does.
+identity; the slab and grid decompositions (``parallel/slab.py::
+HaloSEMOperators``) override it with the neighbour halo exchange, and the
+unstructured split (``parallel/unstructured.py::LocalUnstructuredOps``) with
+the sum of its shared rows over the ranks, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -366,8 +368,8 @@ class SEMOperators:
 
     def complete(self, y: torch.Tensor) -> torch.Tensor:
         """Finish a locally assembled vector. The identity on one device;
-        the slab decomposition's ``HaloSEMOperators`` adds the neighbours'
-        interface-plane partial sums (the JAX package's ``complete``)."""
+        the decompositions' operators add the other ranks' partial sums of
+        the shared rows (the JAX package's ``complete``)."""
         return y
 
     def plain(self) -> "SEMOperators":

@@ -5,9 +5,15 @@ the ranks and the same problem can be built elsewhere (on one device, or by
 another implementation of the models):
 
 * ``"mesh"``: ``("interval" | "rectangle" | "box", n, lo, hi)``,
-  ``("bowl", args, kwargs)`` for ``create_bowl_box(*args, **kwargs)``, or
+  ``("bowl", args, kwargs)`` for ``create_bowl_box(*args, **kwargs)``,
   ``("deformed", n, lo, hi, seed, amplitude)``, a box lattice whose interior
-  vertices are moved by up to ``amplitude`` (seeded);
+  vertices are moved by up to ``amplitude`` (seeded), or ``("jittered", n,
+  lo, hi, seed, amplitude, scramble)``, the same as an unstructured mesh (no
+  ``grid_shape``), its vertex ids permuted by the same generator if
+  ``scramble``; ``"as_unstructured": True`` passes the mesh through
+  ``as_unstructured``;
+* ``"decomp"``: ``slab`` (the default), ``grid`` over ``"dshape"`` or
+  ``unstructured`` with ``"partition"`` (default ``auto``);
 * ``"tag_L"``: tag 1 on the face x = 0 and tag 2 on x = L (None: no tags);
 * ``"model"``: a model class of the package, built as ``cls(mesh, None,
   *args, dtype=, device=, **kwargs)``; an argument ``"@sincos"`` is
@@ -18,18 +24,21 @@ another implementation of the models):
   pulse for a center of one coordinate; zero fields otherwise);
 * ``"run"``: ``rk``, ``rk_record``, ``dirk``, ``dirk_record`` (the sharded
   solvers on the global model), ``streamed``/``streamed_dirk``
-  (``build_sharded``), ``streamed_nonzero`` (the streamed solver from a
-  nonzero template state, which must be refused) or ``decompose`` (only
-  ``SlabDecomposition``); ``"t_end"``; ``"points"`` and ``"bad_points"``
-  (sensors; the bad ones must be refused after the good run).
+  (``build_sharded`` or ``build_sharded_grid``), ``streamed_nonzero`` (the
+  streamed solver from a nonzero template state, which must be refused) or
+  ``decompose`` (only the decomposition); ``"t_end"``; ``"points"`` and
+  ``"bad_points"`` (sensors; the bad ones must be refused after the good
+  run).
 
 ``run_cases(device, cases)`` runs them on one rank and returns, per case,
 the global fields as float64 numpy (every rank holds them), the sensor
 series and the sensors' nearest nodes (``locate_sensors``: rank and local
-coordinates), the CG counts, this rank's K1 launches and seconds in the
-march (after the setup), the message of an expected refusal (``ValueError``)
-and, for a case with ``"k1_operands": True``, the operands this rank's K1
-gets (its local lattice, degree and packed coefficients, on the host).
+coordinates; lattice decompositions), this rank's DOF count, the CG counts
+and dot weights,
+this rank's K1 launches and seconds in the march (after the setup), the
+message of an expected refusal (``ValueError``) and, for a case with
+``"k1_operands": True``, the operands this rank's K1 gets (its local
+lattice, degree and packed coefficients, on the host).
 """
 
 from __future__ import annotations
@@ -40,13 +49,24 @@ import numpy as np
 import torch
 
 from ..core.bowl import create_bowl_box
-from ..core.mesh import Mesh, _structured, tag_boundaries
+from ..core.mesh import Mesh, _structured, as_unstructured, tag_boundaries
 from ..models.experimental import LinearSpectralSponge
 from ..models.linear import LinearSpectralExplicit, LinearSpectralImplicit
 from ..models.lossy import LossySpectralExplicit, LossySpectralImplicit
 from ..models.westervelt import WesterveltSpectralExplicit
 from ..ops.stiffness import stiffness_apply
+from .grid import (
+    GridDecomposition,
+    ShardedExplicitSolver2D,
+    ShardedImplicitSolverND,
+    build_sharded_grid,
+)
 from .slab import ShardedExplicitSolver, ShardedImplicitSolver, SlabDecomposition, build_sharded
+from .unstructured import (
+    ShardedUnstructuredExplicitSolver,
+    ShardedUnstructuredImplicitSolver,
+    UnstructuredDecomposition,
+)
 
 MODELS = {cls.__name__: cls for cls in (
     LinearSpectralExplicit, LinearSpectralImplicit, LossySpectralExplicit, LossySpectralImplicit,
@@ -77,9 +97,23 @@ def make_mesh(spec: dict):
         rng = np.random.default_rng(seed)
         verts[inner] += amp * (rng.random((int(inner.sum()), verts.shape[1])) - 0.5)
         mesh = Mesh(dim=base.dim, vertices=verts, cells=base.cells, grid_shape=base.grid_shape)
+    elif kind == "jittered":
+        n, lo, hi, seed, amp, scramble = rest
+        base = _structured(tuple(n), tuple(lo), tuple(hi))
+        verts, cells = base.vertices.copy(), np.asarray(base.cells)
+        vlo, vhi = verts.min(axis=0), verts.max(axis=0)
+        inner = np.all((verts > vlo + 1e-12) & (verts < vhi - 1e-12), axis=1)
+        rng = np.random.default_rng(seed)
+        verts[inner] += amp * (rng.random((int(inner.sum()), verts.shape[1])) - 0.5)
+        if scramble:
+            perm = rng.permutation(base.num_vertices)
+            moved = np.empty_like(verts)
+            moved[perm] = verts
+            verts, cells = moved, perm[cells]
+        mesh = Mesh(dim=base.dim, vertices=verts, cells=cells)
     else:
         raise ValueError(f"unknown mesh kind {kind!r}")
-    return mesh
+    return as_unstructured(mesh) if spec.get("as_unstructured") else mesh
 
 
 def tag(mesh, L):
@@ -120,8 +154,36 @@ def _streamed(spec: dict, device, implicit: bool):
     def factory(local_mesh):
         return make_model(spec, device, tag(local_mesh, spec.get("tag_L")))
 
-    return build_sharded(factory, tuple(n), lo, hi, degree, None,
-                         getattr(torch, spec["dtype"]), implicit=implicit, device=device)
+    dtype = getattr(torch, spec["dtype"])
+    if spec.get("decomp") == "grid":
+        return build_sharded_grid(factory, tuple(n), lo, hi, degree, tuple(spec["dshape"]), dtype,
+                                  implicit=implicit, device=device)
+    return build_sharded(factory, tuple(n), lo, hi, degree, None, dtype, implicit=implicit,
+                         device=device)
+
+
+def _solver(spec: dict, model, device, implicit: bool):
+    """The case's sharded solver of ``model``."""
+    decomp = spec.get("decomp", "slab")
+    if decomp == "grid":
+        cls = ShardedImplicitSolverND if implicit else ShardedExplicitSolver2D
+        return cls(model, tuple(spec["dshape"]), device=device)
+    if decomp == "unstructured":
+        cls = ShardedUnstructuredImplicitSolver if implicit else ShardedUnstructuredExplicitSolver
+        return cls(model, partition=spec.get("partition", "auto"), device=device)
+    return (ShardedImplicitSolver if implicit else ShardedExplicitSolver)(model, device=device)
+
+
+def _decompose(spec: dict, device):
+    """The case's decomposition alone."""
+    mesh, degree, dtype = make_mesh(spec), spec["args"][0], getattr(torch, spec["dtype"])
+    decomp = spec.get("decomp", "slab")
+    if decomp == "grid":
+        return GridDecomposition(mesh, degree, tuple(spec["dshape"]), dtype, device)
+    if decomp == "unstructured":
+        return UnstructuredDecomposition(mesh, degree, None, dtype,
+                                         partition=spec.get("partition", "auto"), device=device)
+    return SlabDecomposition(mesh, degree, None, dtype, device)
 
 
 def run_case(spec: dict, device) -> dict:
@@ -130,8 +192,7 @@ def run_case(spec: dict, device) -> dict:
     out = {"name": spec["name"], "rank": torch.distributed.get_rank()}
     if run == "decompose":
         try:
-            mesh = make_mesh(spec)
-            SlabDecomposition(mesh, spec["args"][0], None, getattr(torch, spec["dtype"]), device)
+            _decompose(spec, device)
             out["error"] = None
         except ValueError as e:
             out["error"] = str(e)
@@ -150,9 +211,7 @@ def run_case(spec: dict, device) -> dict:
         solver = _streamed(spec, device, implicit=run == "streamed_dirk")
         march = solver.dirk if run == "streamed_dirk" else solver.rk
     else:
-        implicit = run.startswith("dirk")
-        solver = (ShardedImplicitSolver if implicit else ShardedExplicitSolver)(
-            make_model(spec, device), device=device)
+        solver = _solver(spec, make_model(spec, device), device, implicit=run.startswith("dirk"))
         march = getattr(solver, run)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -161,12 +220,15 @@ def run_case(spec: dict, device) -> dict:
     if run.endswith("_record"):
         pts = np.asarray(spec["points"], np.float64)
         u, v, _, times, ys = march(0.0, t_end, pts)
-        out.update(times=times, ys=_host(ys), located=solver.dec.locate_sensors(pts))
+        out.update(times=times, ys=_host(ys))
+        if hasattr(solver.dec, "locate_sensors"):
+            out["located"] = solver.dec.locate_sensors(pts)
     else:
         u, v, _ = march(0.0, t_end)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    out.update(seconds=time.perf_counter() - t0, k1=stiffness_apply.launches - launches)
+    out.update(seconds=time.perf_counter() - t0, k1=stiffness_apply.launches - launches,
+               local_ndofs=solver.dec.local_ndofs)
     if streamed:
         u, v = solver.global_result()
     out.update(u=_host(u), v=_host(v))
@@ -178,6 +240,7 @@ def run_case(spec: dict, device) -> dict:
     if solver.model.__dict__.get("cg_stats"):
         out["cg"] = solver.model.cg_stats["max_iterations"]
         out["cg_res2"] = solver.model.cg_stats["max_residual2"]
+        out["weights"] = _host(solver.weights)
     if spec.get("bad_points") is not None:
         try:
             solver.rk_record(t_end, t_end + 2 * solver.model.dt,

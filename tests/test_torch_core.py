@@ -179,6 +179,7 @@ def test_port_imports_no_jax():
         "fenicsxfus_tpu_torch.ops.cg, fenicsxfus_tpu_torch.core.conn, "
         "fenicsxfus_tpu_torch.tools.unstructured_solve, chip_smoke, "
         "fenicsxfus_tpu_torch.parallel, fenicsxfus_tpu_torch.parallel.runs, "
+        "fenicsxfus_tpu_torch.parallel.dryrun, "
         f"fenicsxfus_tpu_torch.drivers.mendousse, {tools}, {', '.join(scripts)}; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fenicsxfus_tpu', 'examples', 'experiments', 'benchmarks')]; "
@@ -230,8 +231,12 @@ def _cpu_model(cls):
     return cls(_box(), device="cpu", **{**_MODEL_ARGS, "rk_order": 2})
 
 
-# the slab decomposition's entry points (no process group is needed to see
-# the device refused: the device is resolved first)
+def _cpu_unstructured(cls):
+    return cls(tmesh.as_unstructured(_box()), device="cpu", **{**_MODEL_ARGS, "rk_order": 2})
+
+
+# the decompositions' entry points (no process group is needed to see the
+# device refused: the device is resolved first)
 ENTRY_POINTS.update({
     "parallel.ShardedExplicitSolver": lambda: parallel.ShardedExplicitSolver(
         _cpu_model(ft.LinearSpectralExplicit)),
@@ -240,6 +245,18 @@ ENTRY_POINTS.update({
     "parallel.build_sharded": lambda: parallel.build_sharded(
         lambda m: None, (2, 2, 2), (0, 0, 0), (1, 1, 1), 2, None, torch.float64),
     "parallel.spawn": lambda: parallel.spawn(print, 1),
+    "parallel.ShardedExplicitSolver2D": lambda: parallel.ShardedExplicitSolver2D(
+        _cpu_model(ft.LinearSpectralExplicit), (1, 1)),
+    "parallel.ShardedImplicitSolverND": lambda: parallel.ShardedImplicitSolverND(
+        _cpu_model(ft.LinearSpectralImplicit), (1, 1)),
+    "parallel.build_sharded_grid": lambda: parallel.build_sharded_grid(
+        lambda m: None, (2, 2, 2), (0, 0, 0), (1, 1, 1), 2, (1, 1), torch.float64),
+    "parallel.ShardedUnstructuredExplicitSolver": lambda: parallel.ShardedUnstructuredExplicitSolver(
+        _cpu_unstructured(ft.LinearSpectralExplicit)),
+    "parallel.ShardedUnstructuredImplicitSolver": lambda: parallel.ShardedUnstructuredImplicitSolver(
+        _cpu_unstructured(ft.LinearSpectralImplicit)),
+    "parallel.dryrun_multichip": lambda: importlib.import_module(
+        "fenicsxfus_tpu_torch.parallel.dryrun").dryrun_multichip(1),
     "examples.sharded_planewave3d": lambda: importlib.import_module(
         "fenicsxfus_tpu_torch.examples.sharded_planewave3d").main(nx=2, world=1),
 })
