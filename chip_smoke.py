@@ -261,6 +261,24 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    each grid rank's own operands of each case against its plain version
    (fp64 1e-14, fp32 5e-7), timed, with that rank's launches.
 
+22. the compiled tiles of K1 and K2 (``csrc/tiles.cuh``: the degree and the
+   tile fixed at compile time, one tile per degree and type from
+   ``ops/stiffness.py::degree_tile``): (a) each against its plain version
+   and against the general kernel (p and tile at run time) bit for bit, on
+   [14a]'s (9,5,7) and ragged (13,11,17) and on a lattice of two whole
+   tiles and a cut one; (b) each at its run's shape where a run of the port
+   launches it at full size (PH1 SC2-BM7's lattice at p = 5,
+   ``operator_speed``'s at p = 2, 3, 5, 6, the headline and the HITU
+   lattice for fp64 K1, ``bowl_convergence``'s nx = 36 for the fp64 band),
+   held and timed beside the general kernel on the same operands, its
+   plain version and its bound, and every other compiled tile on 161³
+   nodes, held and timed beside its plain version and its bound; (c) the models through their entry points
+   at each compiled degree and type (``rk``: K2 of every compiled kind and,
+   on the bowl-fitted mesh at nx = 20, K2 with its band; the linear and
+   lossy models' unfused step: K1 with one and two fields), 2 steps each,
+   with each kernel's launches, and each held against its plain path; (d)
+   each compiled kernel's ptxas registers and spills (a spill fails).
+
 Each phase prints its wall time. Every kernel wrapper counts its launches;
 the counts are set to 0 just before a main path runs and read just after.
 The line before the last is one JSON object with the per-kernel numbers
@@ -274,6 +292,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -380,14 +399,15 @@ def k4_plan_line(gdims, p: int) -> str:
             f"{axes12_plan(gdims, p, 2, torch.float32)}")
 
 
-def plan_line(gdims, p: int, nf: int, nr=None, dtype=None) -> str:
+def plan_line(gdims, p: int, nf: int, nr=None, dtype=None, kernel=None) -> str:
     """The tile plan (fp32 unless ``dtype`` is given) of the tiled K1
-    (nr = nf) or K2 kernels on a lattice."""
+    (nr = nf) or K2 kernels on a lattice, for the launch ``kernel`` (as
+    ``ops/stiffness.py::compiled_key``; None: the general plan)."""
     import torch
 
     from fenicsxfus_tpu_torch.ops.stiffness import tile_plan
 
-    return str(tile_plan(gdims, p, nf, dtype or torch.float32, nr=nr))
+    return str(tile_plan(gdims, p, nf, dtype or torch.float32, nr=nr, kernel=kernel))
 
 
 # ------------------------------------------------------------ launch counts
@@ -418,6 +438,8 @@ def reset_counts() -> None:
                step_wave.step_wave_apply):
         fn.launches.clear()
     stage.stage_apply.band_launches.clear()
+    stiffness.stiffness_apply.tiles.clear()
+    stage.stage_apply.tiles.clear()
 
 
 STAGE_KERNELS = ("K2", "K2+band", "K5a", "K5b", "K3")
@@ -1622,10 +1644,6 @@ def phase_bowl_all(device, card) -> dict:
 
 TOL64 = 1e-12  # fp64, sums of ~30 terms taken in another order than the plain version
 IMPLICIT_STEPS = 10
-# the fp64 K1 kernels of the implicit path: tile.cuh's general tile, 1 and 2 fields
-K1_FP64 = {1: "stiffness_tile_kernelIdLi1ELb0E", 2: "stiffness_tile_kernelIdLi2ELb0E"}
-
-
 def ptxas_text(ptxas: dict, key: str) -> str:
     """The ptxas lines of the kernel whose mangled name holds ``key``."""
     found = [" ".join(v) for k, v in ptxas.items() if key in k]
@@ -1677,13 +1695,17 @@ def phase_k1_fp64(device, card, ptxas) -> dict:
             pms = cuda_median_ms(lambda: stiffness_plain(x_in, F_in, p))
             bound = floor_ms(nbytes(x_in, F_in), nbytes(xs[0]),
                              stencil_flops(lat.gdims, p, nf, (0, 1, 2)), FP64_FLOP_PER_S)
-            err = rel_err(stiffness_apply(x_in, F_in, p), stiffness_plain(x_in, F_in, p))[1]
+            y, kernel = _took(lambda: stiffness_apply(x_in, F_in, p))
+            err = rel_err(y, stiffness_plain(x_in, F_in, p))[1]
+            del y
             say(f"[14] K1 fp64 {nf} field(s) grid={grid} p={p}: kernel {ms:.3f} ms (device "
                 f"alone {dms:.3f} ms), plain {pms:.3f} ms, {share_text(bound, dms)} of the "
                 f"device's time (median of 10, CUDA events; {card}); tile plan "
-                f"{plan_line(lat.gdims, p, nf, dtype=torch.float64)}; ptxas "
-                f"{ptxas_text(ptxas, K1_FP64[nf])}")
-            out[nf] = {"max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms, **bound}
+                f"{plan_line(lat.gdims, p, nf, dtype=torch.float64, kernel=('K1', nf))}, "
+                f"{kernel}; ptxas "
+                f"{ptxas_text(ptxas, tile_mangled(kernel))}")
+            out[nf] = {"max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
+                       "kernel": kernel, **bound}
         del xs, coeffs
         torch.cuda.synchronize()
     return out
@@ -2294,7 +2316,9 @@ def k1_on_operands(Fs, gdims, p, card, tag) -> dict:
     device, dtype = Fs[0]["F0"].device, Fs[0]["F0"].dtype
     gen = torch.Generator(device=device).manual_seed(16)
     xs = [torch.randn(gdims, generator=gen, device=device, dtype=dtype) for _ in Fs]
-    rel, err = rel_err(stiffness_apply(xs, Fs, p), stiffness_plain(xs, Fs, p))
+    y, kernel = _took(lambda: stiffness_apply(xs, Fs, p))
+    rel, err = rel_err(y, stiffness_plain(xs, Fs, p))
+    del y
     ms = cuda_median_ms(lambda: stiffness_apply(xs, Fs, p))
     pms = cuda_median_ms(lambda: stiffness_plain(xs, Fs, p))
     rate = FP64_FLOP_PER_S if dtype == torch.float64 else FP32_FLOP_PER_S
@@ -2305,7 +2329,7 @@ def k1_on_operands(Fs, gdims, p, card, tag) -> dict:
         f"{share_text(bound, ms)} (median of 10, CUDA events; {card})")
     if not rel <= (TOL64 if dtype == torch.float64 else TOL):
         raise AssertionError(f"{tag} K1 disagrees with its plain version: {rel:.3e}")
-    return {"max_abs_err": err, "rel": rel, "ms": ms, "plain_ms": pms, **bound}
+    return {"max_abs_err": err, "rel": rel, "ms": ms, "plain_ms": pms, "kernel": kernel, **bound}
 
 
 def explicit_against_plain(model, tag: str, steps: int = 3, gate: float = TOL) -> float:
@@ -2808,7 +2832,8 @@ def k2_on_model(model, card, tag) -> dict:
                     facets=facets, scal=scal, p=p, final=final)
         if band is not None:
             args["band"] = band
-        got, ref = stage_apply(**args), stage_plain(**args)
+        launch = ("K2" if band is None else "K2+band", kind)
+        (got, kernel), ref = _took(lambda: stage_apply(**args)), stage_plain(**args)
         torch.cuda.synchronize()
         worst = max(rel_err(a, b) for a, b in (zip(got, ref) if final else [(got, ref)]))
         stage = "final" if final else "non-final"
@@ -2825,9 +2850,11 @@ def k2_on_model(model, card, tag) -> dict:
             say(f"{tag} K2 {kind} p={p} at {tuple(u0.shape)}, the model's {coeff} operands, "
                 f"{stage}: max|d|/max|ref| = {worst[0]:.3e}; kernel {ms:.3f} ms, plain "
                 f"{pms:.3f} ms, {share_text(bound, ms)} (median of 10, CUDA events; {card}); "
-                f"tile plan {plan_line(tuple(u0.shape), p, len(Fs), len(Fs) + 2)}")
+                f"tile plan {plan_line(tuple(u0.shape), p, len(Fs), len(Fs) + 2, u0.dtype, launch)}"
+                f", {kernel}")
             out[stage] = {"max_abs_err": worst[1], "rel_err": worst[0], "ms": ms,
-                          "plain_ms": pms, "coeff": coeff, "gdims": tuple(u0.shape), **bound}
+                          "plain_ms": pms, "coeff": coeff, "gdims": tuple(u0.shape),
+                          "kernel": kernel, **bound}
         return got
 
     gd = model.ops.gdims
@@ -3627,11 +3654,13 @@ def phase_operator_speed(device, card) -> dict:
                 raise AssertionError(f"[18b] p={degree}: {kernels} did not launch: {launches}")
             out["rows"] += rows
         x, F, p = s["x"], s["coeffs"]["const"], degree
-        y, ref = stiffness_apply([x], [F], p), stiffness_plain([x], [F], p)
+        with uncounted():
+            (y, kernel), ref = (_took(lambda: stiffness_apply([x], [F], p)),
+                                stiffness_plain([x], [F], p))
         err = rel_err(y, ref)[1]
         del y, ref
         k1 = next(r for r in out["rows"] if r["degree"] == degree and r["pipeline"] == "K1")
-        out["k1"][degree] = {"max_abs_err": err, "ms": k1["ms"],
+        out["k1"][degree] = {"max_abs_err": err, "ms": k1["ms"], "kernel": kernel,
                              "plain_ms": cuda_median_ms(lambda: stiffness_plain([x], [F], p)),
                              "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
                              "gdims": s["ops"].gdims, "launches": k1_launches}
@@ -3728,9 +3757,13 @@ def uncounted():
     from fenicsxfus_tpu_torch.ops import stage, stage_ab, step_wave, stiffness
 
     saved = counts()
+    tiles = {fn: dict(fn.tiles) for fn in (stiffness.stiffness_apply, stage.stage_apply)}
     try:
         yield
     finally:
+        for fn, saved_tiles in tiles.items():
+            fn.tiles.clear()
+            fn.tiles.update(saved_tiles)
         stiffness.stiffness_apply.launches = saved["K1"]
         stiffness.stiffness_axis0_apply.launches = saved["K4a"]
         stiffness.stiffness_axes12_apply.launches = saved["K4b"]
@@ -3756,7 +3789,9 @@ def k1_lattice(grid, dtype, card, tag) -> dict:
     x = torch.randn(lat.gdims, generator=torch.Generator(device=dev).manual_seed(19),
                     device=dev, dtype=dtype)
     F = pack_const(lat, 1.0, dev)
-    rel, err = rel_err(stiffness_apply([x], [F], 4), stiffness_plain([x], [F], 4))
+    y, kernel = _took(lambda: stiffness_apply([x], [F], 4))
+    rel, err = rel_err(y, stiffness_plain([x], [F], 4))
+    del y
     ms = cuda_median_ms(lambda: stiffness_apply([x], [F], 4))
     pms = cuda_median_ms(lambda: stiffness_plain([x], [F], 4))
     rate = FP64_FLOP_PER_S if dtype == torch.float64 else FP32_FLOP_PER_S
@@ -3766,7 +3801,8 @@ def k1_lattice(grid, dtype, card, tag) -> dict:
         f"events; {card})")
     if not rel <= (TOL64 if dtype == torch.float64 else TOL):
         raise AssertionError(f"{tag} K1 disagrees with its plain version: {rel:.3e}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "gdims": lat.gdims, **bound}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "gdims": lat.gdims, "kernel": kernel,
+            **bound}
 
 
 def no_stage_kernel(tag, launches) -> None:
@@ -4675,6 +4711,384 @@ def phase_split(device, card, side: SideJobs) -> dict:
     return {"grid": res["rows"], "unstructured": un["rows"], "dryrun": dry, "k1": k1}
 
 
+# ------------------------------------------- [22] the compiled tiles of K1 and K2
+
+# the box of [22c]'s model drives, by (dtype, degree): 16 cells along x and
+# two whole tiles and a cut one along y and z for the widest compiled tile
+# at that degree, so every compiled tile runs under the default plan (at
+# least MIN_BLOCKS blocks) on a cut last tile; cubic cells of 1 mm
+TILE_CELL_MM = 1e-3
+TILE_RUN_STEPS = 2
+# the run shapes of the compiled tiles that a run of the port launches at
+# full size (cells; K2+band with a 65-row band): timed there beside the
+# general kernel; every other compiled tile is timed on MID_NODES_SIDE³ nodes
+RUN_CELLS = {
+    ("K2", "float32", 5, "focused"): ((80, 47, 47), "PH1 SC2-BM7 [17d]"),
+    ("K1", "float64", 4, 1): ((HEADLINE_NX,) * 3, "the implicit headline's CG [14]"),
+    ("K1", "float64", 4, 2): ((80, 47, 47), "the HITU lattice's lossy CG and adaptive slopes [14]"),
+    ("K2+band", "float64", 4, "westervelt"): ((36, 21, 21), "bowl_convergence nx = 36 [19i]"),
+    **{("K1", "float32", p, 1): ((n,) * 3, "operator_speed [18b]")
+       for p, n in ((2, 169), (3, 112), (5, 67), (6, 56))},
+}
+MID_NODES_SIDE = 161
+
+
+KIND_INDEX = {"linear": 0, "lossy": 1, "westervelt": 2, "focused": 3}  # csrc/stage.cuh Kind
+
+
+def _tile_name(name: str):
+    """(family, float64?, p, fields or kind, (t1, t2) or None, how) of a
+    kernel name of ``ops/stiffness.py::tile_kernel``."""
+    parts = name.split()
+    fam, f64, p, what, how = (parts[0], parts[1] == "float64", int(parts[2][2:]), parts[3],
+                              parts[-1])
+    tile = tuple(int(t) for t in parts[4].split("x")) if how != "general" else None
+    return fam, f64, p, int(what[:-1]) if fam == "K1" else what, tile, how
+
+
+def tile_source(name: str) -> str:
+    """The csrc file that holds the kernel ``name`` (``tile_kernel``'s)."""
+    fam, f64, p, _, _, how = _tile_name(name)
+    if how != "compiled":
+        return "stiffness.cu" if fam == "K1" else ("stage_f64.cu" if f64 else "stage.cu")
+    if fam == "K1":
+        return "stiffness_tiles_f64.cu" if f64 else "stiffness_tiles_f32.cu"
+    return f"stage_tiles_f64_p{p}.cu" if f64 else "stage_tiles_f32.cu"
+
+
+def tile_mangled(name: str) -> str:
+    """A part of the mangled name of the kernel ``name`` (``tile_kernel``'s),
+    to find its ptxas lines."""
+    fam, f64, p, what, tile, how = _tile_name(name)
+    t = "d" if f64 else "f"
+    arg = f"Li{what}E" if fam == "K1" else f"Li{KIND_INDEX[what]}E"
+    kernel = {"K1": "stiffness", "K2": "stage", "K2+band": "stage_band"}[fam]
+    if how == "compiled":
+        return (f"{kernel}_fixed_kernelI{t}{arg}NS_9FixedTileILi{p}ELi{tile[0]}ELi{tile[1]}E")
+    return f"{kernel}_{'kernel' if fam == 'K2+band' else 'tile_kernel'}I{t}{arg}Lb" \
+        f"{1 if how == 'main' else 0}E"
+
+
+def tile_counts() -> dict:
+    """The launches of K1 and K2 by the kernel each took
+    (``ops/stiffness.py::tile_kernel``)."""
+    from fenicsxfus_tpu_torch.ops import stage, stiffness
+
+    return dict(stiffness.stiffness_apply.tiles) | dict(stage.stage_apply.tiles)
+
+
+def _tile_key_args(key):
+    """(nf, nr, dtype) of a compiled tile's key."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops.stiffness import KIND_FIELDS, KIND_RAW
+
+    fam, dtn, p, what = key
+    nf = what if fam == "K1" else KIND_FIELDS[what]
+    return nf, (nf if fam == "K1" else KIND_RAW[nf]), getattr(torch, dtn)
+
+
+def _tile_operands(key, lat, device, gen, rng, scale, dg0):
+    """Seeded operands of a compiled tile's kernel on ``lat``: (call, plain,
+    bound) with call() and plain() its wrapper and its plain version."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops import stage, stiffness
+
+    fam, _, p, what = key
+    nf, _, dt = _tile_key_args(key)
+    if fam == "K1":
+        xs = [torch.randn(lat.gdims, generator=gen, device=device, dtype=dt) for _ in range(nf)]
+        Fs = [stiffness.pack_const(lat, scale * (1.0 - 0.5 * f), device) for f in range(nf)]
+        if dg0:  # the last field's coefficient DG-0
+            Fs[-1] = stiffness.pack_field(
+                lat, rng.uniform(0.5, 2.0, int(np.prod(lat.grid))) * scale, device)
+        rate = FP64_FLOP_PER_S if dt == torch.float64 else FP32_FLOP_PER_S
+        bound = floor_ms(nbytes(xs, Fs), nbytes(xs[0]),
+                         stencil_flops(lat.gdims, p, nf, (0, 1, 2)), rate)
+        return (lambda: stiffness.stiffness_apply(xs, Fs, p),
+                lambda: stiffness.stiffness_plain(xs, Fs, p), bound)
+    args = _stage_inputs(what, lat, device, gen, rng, False, scale, dg0=dg0)
+    args = {k: (v.to(dt) if isinstance(v, torch.Tensor) else v) for k, v in args.items()}
+    args["Fs"] = [{k: v.to(dt) for k, v in F.items()} for F in args["Fs"]]
+    args["dense"] = [d.to(dt) for d in args["dense"]]
+    args["facets"] = [{k: v.to(dt) for k, v in f.items()} for f in args["facets"]]
+    if fam == "K2+band":
+        args["band"] = torch.randn((min(BOWL_BAND_ROWS, lat.gdims[0]), *lat.gdims[1:]),
+                                   generator=gen, device=device, dtype=dt)
+    return (lambda: stage.stage_apply(**args), lambda: stage.stage_plain(**args),
+            stage_floor(args, "K2"))
+
+
+@contextlib.contextmanager
+def general_plan():
+    """K1 and K2 on the general kernel (p and the tile read at run time)
+    and the general plan (``tile_plan`` without its kernel): the design
+    before the compiled tiles, on the same operands. Where the general plan
+    is a compiled tile's (the C dispatch keys on the plan), it gets one
+    warp more, so that the general kernel takes it."""
+    from fenicsxfus_tpu_torch.ops import stage, stiffness
+
+    plan = stiffness.tile_plan
+
+    def general(gdims, p, nf, dtype, nr=None, kernel=None):
+        out = plan(gdims, p, nf, dtype, nr=nr)
+        if kernel is not None and stiffness.tile_kernel(out, p, dtype, kernel).endswith(
+                "compiled"):
+            out = dict(out, threads=out["threads"] + 32)
+        return out
+
+    stiffness.tile_plan = stage.tile_plan = general
+    try:
+        yield
+    finally:
+        stiffness.tile_plan = stage.tile_plan = plan
+
+
+def _took(fn):
+    """fn()'s result and the kernel its launch took."""
+    import torch
+
+    before = tile_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    took = [k for k, v in tile_counts().items() if v != before.get(k, 0)]
+    return out, took[0] if len(took) == 1 else took
+
+
+def hold_tile(key, lat, device, gen, rng, scale, dg0, tag, card=None, general=True) -> dict:
+    """A compiled tile's kernel on ``lat`` against its plain version (TOL,
+    TOL64) and against the general kernel bit for bit; with ``card``, timed
+    (CUDA events, the device alone) beside its plain version, its bound and
+    (``general``) the general kernel. Returns the kernel taken and the
+    numbers."""
+    import torch
+
+    call, plain, bound = _tile_operands(key, lat, device, gen, rng, scale, dg0)
+    with uncounted():
+        got, took = _took(call)
+        with general_plan():
+            ref_general = call()
+        ref = plain()
+        torch.cuda.synchronize()
+        rel, err = rel_err(got, ref)
+        same = torch.equal(got, ref_general)
+        gate = TOL64 if key[1] == "float64" else TOL
+        del got, ref, ref_general
+        out = {"kernel": took, "rel": rel, "max_abs_err": err, "gdims": lat.gdims, **bound}
+        text = ""
+        if card is not None:
+            ms, dms = cuda_median_ms(call), cuda_device_ms(call)
+            pms = cuda_median_ms(plain, runs=3)
+            out.update(ms=ms, device_ms=dms, plain_ms=pms)
+            text = f"; {ms:.3f} ms (alone {dms:.3f})"
+            if general:
+                with general_plan():
+                    gms, gdms = cuda_median_ms(call), cuda_device_ms(call)
+                out.update(general_ms=gms, general_device_ms=gdms)
+                text += f", the general kernel {gms:.3f} (alone {gdms:.3f})"
+            text += (f", plain {pms:.3f}, {share_text(bound, dms)} of the device's time (median "
+                     f"of 10, CUDA events; {card})")
+    say(f"{tag} {key} at {lat.gdims}: {took}; max|d|/max|ref| = {rel:.3e}, bit for bit the "
+        f"general kernel: {same}{text}")
+    if not rel <= gate:
+        raise AssertionError(f"{tag} {key} disagrees with its plain version: {rel:.3e}")
+    if not same:
+        raise AssertionError(f"{tag} {key} differs from the general kernel")
+    return out
+
+
+def _tile_box(dtype, p):
+    """[22c]'s box at (dtype, p): cells (16, 2 c1 + 1, 2 c2 + 1) for the
+    widest compiled tile (c1 x c2 cells) at that degree and type."""
+    from fenicsxfus_tpu_torch.ops.stiffness import COMPILED_TILES, ITEMSIZE, degree_tile
+
+    dtn = str(dtype).split(".")[-1]
+    tiles = [degree_tile(p, *_tile_key_args(k)[:2], ITEMSIZE[dtype])
+             for k in COMPILED_TILES if k[1] == dtn and k[2] == p]
+    return (16, 2 * max(t[0] for t in tiles) // p + 1, 2 * max(t[1] for t in tiles) // p + 1)
+
+
+def drive_tiles(device, dtype, p, kinds, k1_fields, card) -> dict:
+    """[22c] the main paths of the compiled tiles at (dtype, p): each model
+    of ``kinds`` through ``rk`` (its fused step: K2 four times a step) and
+    the linear (one field) and lossy (two fields) models' unfused step
+    (``unfused_step``: K1 once a stage) for ``k1_fields``, on ``_tile_box``;
+    counts from 0 just before each and read just after; then each fused
+    step against ``stage_plain`` and each unfused one against the plain
+    stiffness. Returns the launches by kernel."""
+    import torch
+
+    import fenicsxfus_tpu_torch as ft
+    from fenicsxfus_tpu_torch.models.common import run_steps
+
+    cells = _tile_box(dtype, p)
+    h = TILE_CELL_MM
+    mesh = ft.create_box(cells, (0.0, 0.0, 0.0), tuple(n * h for n in cells))
+    ft.tag_boundaries(mesh, {1: lambda x: x[0] < 1e-12}, default=2)
+    c0, rho0, f0, p0 = 1500.0, 1000.0, 0.5e6, 6e4
+    dt = 0.3 * h / (c0 * p * p)
+    kw = dict(dtype=dtype, device=device)
+    make = {
+        "linear": lambda: ft.LinearSpectralExplicit(mesh, None, p, c0, rho0, f0, p0, c0, 4, dt,
+                                                    **kw),
+        "lossy": lambda: ft.LossySpectralExplicit(mesh, None, p, c0, rho0, 4e-3, f0, p0, c0, 4,
+                                                  dt, **kw),
+        "westervelt": lambda: ft.WesterveltSpectralExplicit(mesh, None, p, c0, rho0, 4e-3, 3.5,
+                                                            f0, p0, c0, 4, dt, **kw),
+        "focused": lambda: ft.WesterveltSpectralFocused(
+            mesh, None, p, c0, rho0, 4e-3, 3.5, f0, p0, c0, 4, dt,
+            aperture_radius=cells[1] * h / 3, focal_distance=cells[0] * h,
+            center=np.array([0.0, cells[1] * h / 2, cells[2] * h / 2]), **kw),
+    }
+    launches, tag = {}, f"[22c] {str(dtype).split('.')[-1]} p={p}"
+    field_kind = {1: "linear", 2: "lossy"}
+    for kind in dict.fromkeys(list(kinds) + [field_kind[nf] for nf in k1_fields]):
+        model = make[kind]()
+        model.init()
+        if kind in kinds:  # the fused step through rk
+            reset_counts()
+            u, _, _ = model.rk(0.0, TILE_RUN_STEPS * model.dt)
+            torch.cuda.synchronize()
+            c = tile_counts()
+            if counts()["K2"] != {kind: 4 * TILE_RUN_STEPS} or not torch.isfinite(u).all():
+                raise AssertionError(f"{tag} {kind}: K2 {counts()['K2']}, finite "
+                                     f"{bool(torch.isfinite(u).all())}")
+            say(f"{tag} {kind} through rk, {TILE_RUN_STEPS} steps on {model.ops.gdims}: {c}")
+            launches.update(c)
+            with uncounted():
+                fused_against_plain(model, f"{tag} {kind}", steps=1)
+        nf = {"linear": 1, "lossy": 2}.get(kind)
+        if nf in k1_fields:  # the unfused step: K1 once a stage
+            reset_counts()
+            u, _, _ = run_steps(model.unfused_step(), model.consts, model.u_n, model.v_n,
+                                model.t, [model.dt] * TILE_RUN_STEPS)
+            torch.cuda.synchronize()
+            c = tile_counts()
+            if counts()["K1"] != 4 * TILE_RUN_STEPS or not torch.isfinite(u).all():
+                raise AssertionError(f"{tag} {kind} unfused: K1 {counts()['K1']}")
+            say(f"{tag} {kind} unfused step, {TILE_RUN_STEPS} steps: {c}")
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+            with uncounted():
+                explicit_against_plain(model, f"{tag} {kind} unfused", steps=1,
+                                       gate=TOL64 if dtype == torch.float64 else 1e-5)
+        del model
+    return launches
+
+
+def drive_band(device, dtype, p, card) -> dict:
+    """[22c] the bowl-fitted H101 model (``hitu.build_bowl_model``, nx = 20)
+    at (dtype, p) through ``rk``: K2 + band ``westervelt`` four times a step;
+    then the fused step against ``stage_plain``."""
+    import torch
+
+    from fenicsxfus_tpu_torch.drivers import hitu
+
+    tag = f"[22c] {str(dtype).split('.')[-1]} p={p} bowl"
+    model, _, _, _ = hitu.build_bowl_model("W", "H101", "WATER", 20, degree=p, dtype=dtype,
+                                           device=device)
+    model.init()
+    reset_counts()
+    u, _, _ = model.rk(0.0, TILE_RUN_STEPS * model.dt)
+    torch.cuda.synchronize()
+    c = tile_counts()
+    if counts()["K2+band"] != {"westervelt": 4 * TILE_RUN_STEPS} or not torch.isfinite(u).all():
+        raise AssertionError(f"{tag}: K2+band {counts()['K2+band']}")
+    say(f"{tag} through rk, {TILE_RUN_STEPS} steps on {model.ops.gdims}: {c}")
+    with uncounted():
+        fused_against_plain(model, tag, steps=1)
+    return c
+
+
+def phase_tiles(device, card, ptxas) -> dict:
+    """[22] the compiled tiles of csrc/tiles.cuh: (a) each against its
+    plain version and the general kernel bit for bit at [14a]'s shapes and
+    on a lattice of two whole tiles and a cut one along g1 and g2; (b) each
+    at its run's shape (``RUN_CELLS``: held and timed beside the general
+    kernel, the design before them, and its bound) or on MID_NODES_SIDE³
+    nodes (held and timed beside its bound); (c) the models through their entry points
+    at each compiled degree and type, with each kernel's launches; (d) the
+    ptxas registers and spills of each (no spill allowed)."""
+    import torch
+
+    from fenicsxfus_tpu_torch.ops import stiffness
+    from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(22)
+    rng = np.random.default_rng(22)
+    keys = sorted(stiffness.COMPILED_TILES)
+    held, timed = {}, {}
+    # (a) [14a]'s shapes and the cut-tile lattice, unit cells, O(1) coefficients
+    saved = stiffness.MIN_BLOCKS
+    for key in keys:
+        nf, nr, dt = _tile_key_args(key)
+        p = key[2]
+        t1, t2 = stiffness.degree_tile(p, nf, nr, stiffness.ITEMSIZE[dt])
+        cut = (9, 2 * t1 // p + 1, 2 * t2 // p + 1)
+        for grid in ((9, 5, 7), (13, 11, 17), cut):
+            stiffness.MIN_BLOCKS = 1 if grid == cut else saved
+            try:
+                lat = LatticeStiffness(grid, p, (1.0, 1.0, 1.0), dt)
+                out = hold_tile(key, lat, device, gen, rng, 1.0, True, "[22a]")
+            finally:
+                stiffness.MIN_BLOCKS = saved
+            if grid == cut and not str(out["kernel"]).endswith("compiled"):
+                raise AssertionError(f"[22a] {key} took {out['kernel']} on {grid}")
+            held[key] = out
+    say(f"[22a] done at {time.perf_counter() - t_phase:.1f} s")
+    # (b) the run shapes, or MID_NODES_SIDE³ nodes
+    for key in keys:
+        fam, dtn, p, what = key
+        nf, nr, dt = _tile_key_args(key)
+        n = round((MID_NODES_SIDE - 1) / p)
+        cells, where = RUN_CELLS.get(key, ((n,) * 3, "no full-size run"))
+        lat = _lattice(cells, p, dt)
+        scale = 1.0 if fam == "K1" else 1e-3
+        out = hold_tile(key, lat, device, gen, rng, scale, fam != "K1" or nf == 2,
+                        f"[22b] {where}", card, general=key in RUN_CELLS)
+        if not str(out["kernel"]).endswith("compiled"):
+            raise AssertionError(f"[22b] {key} took {out['kernel']} at {lat.gdims}")
+        timed[key] = out
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    say(f"[22b] done at {time.perf_counter() - t_phase:.1f} s")
+    # (c) the models through their entry points
+    launches = {}
+    f32, f64 = torch.float32, torch.float64
+    for dt, p in ((f32, 2), (f32, 3), (f32, 5), (f32, 6), (f64, 2), (f64, 3), (f64, 4),
+                  (f64, 5), (f64, 6)):
+        dtn = str(dt).split(".")[-1]
+        kinds = [k[3] for k in keys if k[0] == "K2" and k[1] == dtn and k[2] == p]
+        fields = [k[3] for k in keys if k[0] == "K1" and k[1] == dtn and k[2] == p]
+        launches.update(drive_tiles(device, dt, p, kinds, fields, card))
+        if ("K2+band", dtn, p, "westervelt") in stiffness.COMPILED_TILES:
+            launches.update(drive_band(device, dt, p, card))
+    say(f"[22c] done at {time.perf_counter() - t_phase:.1f} s")
+    # (d) ptxas: every compiled kernel built and named, no spills
+    fixed = {k: v for k, v in ptxas.items() if "fixed_kernel" in k}
+    for k, v in sorted(fixed.items()):
+        say(f"[22d] {k}: {'; '.join(v)}")
+    spills = [k for k, v in fixed.items() for t in v
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", t)]
+    if ptxas and len(fixed) != len(keys):
+        raise AssertionError(f"[22d] {len(fixed)} compiled kernels in the build log, "
+                             f"{len(keys)} in the table")
+    if spills:
+        raise AssertionError(f"[22d] compiled kernels spill: {spills}")
+    out = {}
+    for key in keys:
+        fam, dtn, p, what = key
+        t = timed[key]
+        name = t["kernel"]
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"[22c] {name} was not launched on its main path: {launches}")
+        out[key] = dict(t, launches=launches[name], ptxas=ptxas_text(ptxas, tile_mangled(name)))
+    say(f"[22] done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4722,6 +5136,7 @@ def main() -> int:
         sharded = phase_sharded(device, card, side, two["unfused"]["sharded"],
                                 implicit["headline"]["sharded"], prod["ph1"][(1, 1)])
         split = phase_split(device, card, side)
+    tiles = phase_tiles(device, card, ptxas)
 
     # launches on each kernel's main path: K1/K2 from phases [5]-[7], K4/K5
     # from phase [11], K3 from phase [12] (HITU for focused, the headline
@@ -4738,7 +5153,11 @@ def main() -> int:
     csrc = "fenicsxfus_tpu_torch/csrc/"
 
     def entry(name, source, replaces, launches, m):
-        # no single PyTorch call computes any of these functions: library_ms is null
+        # no single PyTorch call computes any of these functions: library_ms is null; where
+        # the record names the kernel its launch took (ops/stiffness.py::tile_kernel), the
+        # source is that kernel's file
+        if isinstance(m.get("kernel"), str):
+            name, source = f"{name} [{m['kernel']}]", tile_source(m["kernel"])
         return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
                 "launches": launches, "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
@@ -4867,6 +5286,14 @@ def main() -> int:
                       f"rank {m['rank']} {m['gdims']} {m['fields']} field(s)", "stiffness.cu",
                       "fenicsxfus_tpu/ops/pallas_v3.py:276", m["launches"], m)
                 for m in split["k1"]]
+    # [22]: each compiled tile of csrc/tiles.cuh, timed at its run's shape, its
+    # launches on [22c]'s main paths (the models at its degree and type)
+    for key, m in tiles.items():
+        k1 = key[0] == "K1"
+        kernels.append(entry(f"{'stiffness_apply' if k1 else 'stage_apply'} at "
+                             f"{m['gdims']} ({'K1' if k1 else 'K2'})", "",
+                             "fenicsxfus_tpu/ops/pallas_v3.py:276" if k1
+                             else "fenicsxfus_tpu/ops/pallas_stage_v3.py:442", m["launches"], m))
     say(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -11,7 +11,9 @@
 // about 0.58 GB, or 0.17 ms at 3.35 TB/s (PERF.md section 3). The
 // arithmetic (at most 6N FMAs per axis and node) is far below the fp32 rate.
 //
-// Design: the tiled stencil of tile.cuh with the plain field source. A block
+// Design: the tiled stencil of tile.cuh with the plain field source
+// (kernels in stiffness_tile.cuh; compiled tiles per degree and type,
+// tiles.cuh). A block
 // loads each plane of its (g1, g2) tile plus halo once into shared memory
 // and walks a slab of cells along g0, so x is read from L2 once per node and
 // halo node, where the one-thread-per-node kernel that came before read each
@@ -19,63 +21,37 @@
 // slab reads the cell before it for its first plane's interface.
 #include <cuda_runtime.h>
 
-#include "tile.cuh"
+#include "stiffness_tile.cuh"
 
 namespace fus {
 
-template <typename T, int NF>
-struct StoreY {
-  struct Pre {};
-  T* y;
-  __device__ __forceinline__ Pre prefetch(long long) const { return {}; }
-  __device__ __forceinline__ void operator()(long long node, int, int, int, T acc,
-                                             const Vals<T, NF>&, const Pre&) const {
-    y[node] = acc;
-  }
-};
-
-// NF fields in one stencil pass: each node is loaded once for all fields.
-template <typename T, int NF, bool MAIN>
-__global__ void __launch_bounds__(kTileMaxThreads, kTileMinBlocks)
-    stiffness_tile_kernel(const __grid_constant__ FieldLoad<T, NF> x, const Coeff<T> c0,
-                          const Coeff<T> c1, T* __restrict__ y, const __grid_constant__ Lattice L,
-                          const __grid_constant__ K1Mat<T> K,
-                          const __grid_constant__ TileShape S) {
-  Coeff<T> cf[NF];
-  cf[0] = c0;
-  if constexpr (NF > 1) cf[1] = c1;
-  tile_stencil<T, NF, MAIN>(x, cf, L, K, S, blockIdx, StoreY<T, NF>{y});
-}
-
+// The plan's kernel: the compiled tile of tiles.cuh whose tile the plan is,
+// else the fp32 p = 4 main tile's, else the general kernel. The table is
+// fixed at compile time: a refused launch raises and is never retried on
+// another kernel.
 template <typename T>
 static cudaError_t launch_stiffness(int nf, const unsigned long long* xs,
                                     const unsigned long long* Fs, const int* ext, void* y,
                                     const long long* gdims, int p, const double* K1,
                                     const int* plan, cudaStream_t stream) {
-  const Lattice L = make_lattice(gdims, p);
-  TilePlan P;
-  if (!read_plan(plan, L, nf, nf, (int)sizeof(T), P)) return cudaErrorInvalidValue;
-  Coeff<T> c[2] = {};
-  for (int f = 0; f < nf; ++f)
-    for (int a = 0; a < 3; ++a) {
-      c[f].F[a] = reinterpret_cast<const T*>(Fs[3 * f + a]);
-      c[f].ext[a] = ext[3 * f + a];
+  K1Launch<T> a{};
+  a.L = make_lattice(gdims, p);
+  if (!read_plan(plan, a.L, nf, nf, (int)sizeof(T), a.P)) return cudaErrorInvalidValue;
+  for (int f = 0; f < nf; ++f) {
+    a.x[f] = reinterpret_cast<const T*>(xs[f]);
+    for (int ax = 0; ax < 3; ++ax) {
+      a.c[f].F[ax] = reinterpret_cast<const T*>(Fs[3 * f + ax]);
+      a.c[f].ext[ax] = ext[3 * f + ax];
     }
-  const K1Mat<T> K = make_k1<T>(K1, p);
-  auto X = [&](int f) { return reinterpret_cast<const T*>(xs[f]); };
-  T* out = reinterpret_cast<T*>(y);
+  }
+  a.K = make_k1<T>(K1, p);
+  a.y = reinterpret_cast<T*>(y);
+  a.stream = stream;
   cudaError_t err = cudaErrorInvalidValue;
-  with_shape<T>(p, P, [&](auto main) {
-    constexpr bool MAIN = decltype(main)::value;
-    if (nf == 1) {
-      auto* kernel = &stiffness_tile_kernel<T, 1, MAIN>;
-      err = launch_tile(kernel, P, stream, FieldLoad<T, 1>{{X(0)}}, c[0], c[1], out, L, K,
-                        P.shape);
-    } else {
-      auto* kernel = &stiffness_tile_kernel<T, 2, MAIN>;
-      err = launch_tile(kernel, P, stream, FieldLoad<T, 2>{{X(0), X(1)}}, c[0], c[1], out, L,
-                        K, P.shape);
-    }
+  if (launch_stiffness_compiled<T>(nf, p, a, err)) return err;
+  with_shape<T>(p, a.P, [&](auto main) {
+    using Tile = MainOr<decltype(main)::value>;
+    err = nf == 1 ? launch_stiffness_shape<T, 1, Tile>(a) : launch_stiffness_shape<T, 2, Tile>(a);
   });
   return err;
 }

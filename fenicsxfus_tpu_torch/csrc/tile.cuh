@@ -48,10 +48,12 @@
 // The arithmetic per node is lattice.cuh's (cell_sum, coeff_dot, coeff_acc,
 // add_rn; every rounding written out): axis 0, + axis 1, + axis 2; within an
 // axis sum_j K1[k][j]*x_j in j order, then F_c*s, then the interface cell's
-// F_{c-1}*s'. MAIN fixes p = 4 and the tile (kMainT1 x kMainT2) at compile
-// time, so that every loop over a cell unrolls and every shared-memory
-// offset is a constant; otherwise p and the tile are read at run time, with
-// the loops over a cell unrolled to kMaxN with guards.
+// F_{c-1}*s'. A fixed shape (FixedTile: the fp32 p = 4 main tile, and the
+// per-degree tiles of tiles.cuh) makes p and the tile compile-time
+// constants, so that every loop over a cell unrolls to exactly N, every
+// shared-memory offset is a constant and the per-node arrays hold N
+// entries; the general shape (GeneralTile) reads p and the tile at run time,
+// with the loops over a cell unrolled to kMaxN with guards.
 //
 // ops/stiffness.py::tile_plan chooses t1, t2, slab, the threads, the
 // dynamic shared-memory bytes and the grid; tests/test_torch_tile_plan.py
@@ -131,17 +133,50 @@ inline cudaError_t launch_tile(Kernel* kernel, const TilePlan& P, cudaStream_t s
 // fixed at compile time so that every shared-memory offset is a constant.
 constexpr int kMainT1 = 8, kMainT2 = 32;
 
+// Threads of a t1 x t2 tile at degree p: one per column, and enough to load
+// a plane with its halo kSlots nodes each, in whole warps
+// (ops/stiffness.py::tile_threads).
+constexpr int tile_threads(int t1, int t2, int p) {
+  const int cols = t1 * t2, load = ((t1 + p + 1) * (t2 + p + 1) + kSlots - 1) / kSlots;
+  return 32 * (((cols > load ? cols : load) + 31) / 32);
+}
+
+// The shape of a tile walk. GeneralTile: p and the tile from the lattice
+// and the plan at run time. FixedTile<P, T1, T2>: degree P and the T1 x T2
+// tile at compile time, kThreads threads, and kMinBlocks blocks an SM for
+// the kernels of tiles.cuh's table (the main tile's kernels keep the
+// general kernels' launch bounds).
+struct GeneralTile {
+  static constexpr bool kFixed = false;
+  static constexpr int P = 0, T1 = 0, T2 = 0, kThreads = kTileMaxThreads;
+};
+template <int P_, int T1_, int T2_>
+struct FixedTile {
+  static_assert(T1_ % P_ == 0 && T2_ % P_ == 0, "a tile holds whole cells");
+  static_assert(P_ + 1 <= kMaxN, "degree p <= 8");
+  static constexpr bool kFixed = true;
+  static constexpr int P = P_, T1 = T1_, T2 = T2_;
+  static constexpr int kThreads = tile_threads(T1_, T2_, P_);
+  static constexpr int kMinBlocks = 2;
+  static_assert(kThreads <= kTileMaxThreads, "at most kTileMaxThreads threads");
+  // whether the plan P is this tile's (then p equals P too: read_plan)
+  static bool matches(int p, const TilePlan& plan) {
+    return p == P && plan.shape.t1 == T1 && plan.shape.t2 == T2 && plan.threads == kThreads;
+  }
+};
+using MainTile = FixedTile<4, kMainT1, kMainT2>;
+template <bool MAIN>
+using MainOr = typename std::conditional<MAIN, MainTile, GeneralTile>::type;
+
 // f(std::bool_constant<MAIN>) for a plan of type T: MAIN where the plan is
 // the fp32 main paths' (p = 4 and the kMainT1 x kMainT2 tile: the HITU
 // lattice and the headline), so that p and the tile are compile-time
-// constants there; fp64, other degrees and lattices smaller than the tile
-// take the general kernel, which keeps the number of kernels, and the
-// build, small.
+// constants there; every other plan takes the general kernel. K1 and K2
+// first try the per-degree tiles of tiles.cuh; K3 has only these two.
 template <typename T, typename F>
 inline void with_shape(int p, const TilePlan& P, F&& f) {
   if constexpr (std::is_same<T, float>::value) {
-    if (p == 4 && P.shape.t1 == kMainT1 && P.shape.t2 == kMainT2 &&
-        P.threads == kMainT1 * kMainT2) {
+    if (MainTile::matches(p, P)) {
       f(std::true_type{});
       return;
     }
@@ -256,17 +291,18 @@ struct ColumnAxis {
 // base, P12)``: base = g0*P12 where the array is a lattice field) and forms
 // the NF field values of a node from them (``src.form_raw``). The walk ends
 // in a __syncthreads.
-template <typename T, int NF, bool MAIN, typename Src, typename Out>
+template <typename T, int NF, typename Shape, typename Src, typename Out>
 __device__ __forceinline__ void tile_stencil(const Src& src, const Coeff<T> (&cf)[NF],
                                              const Lattice& L, const K1Mat<T>& K,
                                              const TileShape& S, const dim3& at,
                                              const Out& out) {
-  constexpr int NMAX = MAIN ? 5 : kMaxN;  // planes of a cell, at most
+  constexpr bool FIXED = Shape::kFixed;
+  constexpr int NMAX = FIXED ? Shape::P + 1 : kMaxN;  // planes of a cell, at most
   constexpr int NR = Src::NR;
-  const int p = MAIN ? 4 : L.p;
+  const int p = FIXED ? Shape::P : L.p;
   const int N = p + 1;
-  const int t1 = MAIN ? kMainT1 : S.t1, t2 = MAIN ? kMainT2 : S.t2;
-  const int nthreads = MAIN ? kMainT1 * kMainT2 : (int)blockDim.x;
+  const int t1 = FIXED ? Shape::T1 : S.t1, t2 = FIXED ? Shape::T2 : S.t2;
+  const int nthreads = FIXED ? Shape::kThreads : (int)blockDim.x;
   const int G1 = (int)L.G1, G2 = (int)L.G2;
   const long long P12 = L.G1 * L.G2;
   const int e2 = t2 + p + 1, PE = (t1 + p + 1) * e2;

@@ -231,7 +231,7 @@ __device__ __forceinline__ void wave_item(const StageArgs<T>& a, const WaveRing&
   const int first = (int)at.z * S.slab * L.p, last = (int)L.G0 - 1;  // the slab's first plane
   const WaveOut<T, KIND, SEP> out{a, L, (ring.plane(first) - first) * P12,
                                   (ring.plane(last) - last) * P12};
-  tile_stencil<T, KindTraits<KIND>::NF, MAIN>(src, cf, L, K, S, at, out);
+  tile_stencil<T, KindTraits<KIND>::NF, MainOr<MAIN>>(src, cf, L, K, S, at, out);
 }
 
 // A persistent block: take a ticket, wait, run the item's tile walk with

@@ -44,7 +44,9 @@ import math
 import numpy as np
 import torch
 
-from .stiffness import (
+from .stiffness import (  # noqa: F401 (KIND_FIELDS, KIND_RAW: this module's tables)
+    KIND_FIELDS,
+    KIND_RAW,
     DTYPE_CODES,
     check_coeffs,
     check_fields,
@@ -54,11 +56,10 @@ from .stiffness import (
     plan_ints,
     pointer_array,
     stiffness_plain,
+    tile_kernel,
     tile_plan,
 )
 
-# stiffness fields per kind: un (coefficient 0) and vn (coefficient 1)
-KIND_FIELDS = {"linear": 1, "lossy": 2, "westervelt": 2, "focused": 2}
 # dense per-DOF extras read by the epilogue, in operand order
 KIND_DENSE = {
     "linear": ("inv_m",),
@@ -77,9 +78,6 @@ KIND_FACET = {
 }
 # kinds whose lumped mass depends on the stage field: m = m0 − d2∘un
 NONLINEAR_KINDS = ("westervelt", "focused")
-# raw operands the tiled K2 copies per node, by stiffness fields: u0, v0,
-# kvpp and (two fields) kvp (csrc/stage.cuh StageFields::NR)
-KIND_RAW = {1: 3, 2: 4}
 # kind codes of the C entry ``fus_stage`` (csrc/stage.cu, enum Kind)
 KIND_CODES = {"linear": 0, "lossy": 1, "westervelt": 2, "focused": 3}
 
@@ -315,7 +313,8 @@ def stage_apply(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final
     ptrs, ext = stage_pointers(u0, v0, kvp, kvpp, prev, Fs, dense, facets, outs, exts)
     gd, K1, stream, dev = launch_args(u0, p)
     nf = KIND_FIELDS[kind]
-    plan = tile_plan(u0.shape, p, nf, u0.dtype, nr=KIND_RAW[nf])
+    kernel = ("K2" if band is None else "K2+band", kind)
+    plan = tile_plan(u0.shape, p, nf, u0.dtype, nr=KIND_RAW[nf], kernel=kernel)
     rc = lib.fus_stage(
         KIND_CODES[kind], DTYPE_CODES[u0.dtype], ptrs, ext, gd, p, K1,
         (ctypes.c_double * len(scal))(*scal), len(scal), int(final), plan_ints(plan),
@@ -324,12 +323,15 @@ def stage_apply(kind, u0, v0, kvp, kvpp, prev, Fs, dense, facets, scal, p, final
     )
     check_launch(lib, rc, "K2 stage" if band is None else "K2 stage with a band")
     (stage_apply.launches if band is None else stage_apply.band_launches)[kind] += 1
+    stage_apply.tiles[tile_kernel(plan, p, u0.dtype, kernel)] += 1
     return outs[0] if not final else (outs[1], outs[2])
 
 
-# kernel launches per kind, without and with a band operand
+# kernel launches per kind, without and with a band operand, and by the
+# kernel each took (``ops/stiffness.py::tile_kernel``)
 stage_apply.launches = collections.Counter()
 stage_apply.band_launches = collections.Counter()
+stage_apply.tiles = collections.Counter()
 
 
 class FusedRKStage:

@@ -28,6 +28,7 @@ two-kernel stage (``ops/stage_ab.py``), whose plans live here.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import os
@@ -151,11 +152,112 @@ def tile_threads(t1: int, t2: int, p: int) -> int:
     return 32 * -(-max(t1 * t2, -(-plane // LOAD_SLOTS)) // 32)
 
 
-def tile_plan(gdims, p: int, nf: int, dtype, nr=None) -> dict:
+# The compiled tiles (csrc/tiles.cuh): a kernel with the degree and the tile
+# fixed at compile time for each (type, degree, fields or kind) that a 3D
+# path of the port launches. degree_tile chooses each tile: from whole
+# cells, the halo factor (t1+p+1)(t2+p+1)/(t1 t2) closest to the fp32 p = 4
+# main tile's (8 x 32: 1.88), with TILE_MIN_BLOCKS blocks an SM in shared
+# memory (SMEM_SM, less SMEM_RESERVED a block) and in registers
+# (TILE_REGISTERS a thread: the kernels' __launch_bounds__ hold ptxas to it),
+# at most MAX_THREADS threads; ties go to the longer rows along g2, then g1.
+TILE_MIN_BLOCKS = 2  # csrc/tile.cuh FixedTile::kMinBlocks
+SMEM_SM = 233_472  # shared memory of an H100 SM (228 KB)
+SMEM_RESERVED = 1024  # of it, reserved by the runtime for each block
+REGISTERS_SM = 65_536
+# registers a thread of a compiled tile takes without spilling, by (item
+# size, fields, raw operands): K1 with 1 or 2 fields, K2 with 3 or 4 raw
+# operands (ptxas, PERF.md)
+TILE_REGISTERS = {(4, 1, 1): 136, (4, 2, 2): 200, (4, 1, 3): 136, (4, 2, 4): 168,
+                  (8, 1, 1): 168, (8, 2, 2): 200, (8, 1, 3): 168, (8, 2, 4): 200}
+MAIN_TILE = (8, 32)  # the fp32 p = 4 main tile (csrc/tile.cuh kMainT1, kMainT2)
+# K2's stiffness fields per kind (ops/stage.py): un (coefficient 0) and vn
+# (coefficient 1); the raw operands its tile copies per node, by fields: u0,
+# v0, kvpp and (two fields) kvp (csrc/stage.cuh StageFields::NR)
+KIND_FIELDS = {"linear": 1, "lossy": 2, "westervelt": 2, "focused": 2}
+KIND_RAW = {1: 3, 2: 4}
+_F32, _F64 = "float32", "float64"
+# the entries of csrc/tiles.cuh: ("K1", type, p, fields) and ("K2" or
+# "K2+band", type, p, kind)
+COMPILED_TILES = frozenset(
+    [("K1", _F32, p, nf) for p in (2, 3, 5, 6) for nf in (1, 2)]
+    + [("K1", _F64, p, nf) for p in (2, 3, 4, 5, 6) for nf in (1, 2)]
+    + [("K2", dt, p, kind) for dt, p in ((_F32, 5), (_F64, 4), (_F64, 5)) for kind in KIND_FIELDS]
+    + [("K2+band", dt, p, "westervelt") for dt, p in ((_F32, 5), (_F64, 4), (_F64, 5))])
+
+
+def halo_factor(t1: int, t2: int, p: int) -> float:
+    """Nodes a t1 × t2 tile loads a plane (its halo included) per node it owns."""
+    return (t1 + p + 1) * (t2 + p + 1) / (t1 * t2)
+
+
+def degree_tile(p: int, nf: int, nr: int, itemsize: int):
+    """The compiled tile (t1, t2) of degree p with ``nf`` stencil fields
+    formed from ``nr`` raw operands of ``itemsize`` bytes (the rule above),
+    or None if no tile of whole cells fits TILE_MIN_BLOCKS blocks an SM."""
+    return _degree_tile(int(p), int(nf), int(nr), int(itemsize),
+                        TILE_REGISTERS[itemsize, nf, nr], MAX_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def _degree_tile(p, nf, nr, itemsize, registers, max_threads):
+    target = halo_factor(*MAIN_TILE, 4)
+    threads = min(max_threads, 32 * (REGISTERS_SM // (TILE_MIN_BLOCKS * registers) // 32))
+    smem = SMEM_SM // TILE_MIN_BLOCKS - SMEM_RESERVED
+    best = None
+    for c1 in range(1, threads + 1):
+        for c2 in range(1, threads // c1 + 1):
+            t1, t2 = c1 * p, c2 * p
+            if tile_threads(t1, t2, p) > threads or \
+                    tile_smem_bytes(t1, t2, p, nf, nr, itemsize) > smem:
+                continue
+            key = (abs(halo_factor(t1, t2, p) - target), -t2, -t1)
+            if best is None or key < best[0]:
+                best = (key, (t1, t2))
+    return None if best is None else best[1]
+
+
+def compiled_key(p: int, dtype, kernel):
+    """The csrc/tiles.cuh entry of a launch of ``kernel`` (``("K1", nf)``,
+    ``("K2", kind)`` or ``("K2+band", kind)``) at degree p in ``dtype``, or
+    None if the table has none."""
+    key = (kernel[0], str(dtype).split(".")[-1], int(p), kernel[1])
+    return key if key in COMPILED_TILES else None
+
+
+def tile_kernel(plan: dict, p: int, dtype, kernel) -> str:
+    """The kernel a launch of ``kernel`` (as ``compiled_key``) on ``plan``
+    takes in csrc/ (the mirror of stiffness.cu's and stage_tile.cuh's
+    dispatch): the compiled tile of tiles.cuh whose tile the plan is, else
+    the fp32 p = 4 main tile (8 × 32, 256 threads; K2 with the band only for
+    westervelt), else the general kernel. Returns its name, e.g. "K2 float32
+    p=5 focused 10x30 compiled"."""
+    fam, what = kernel
+    dt = str(dtype).split(".")[-1]
+    label = f"{what}f" if fam == "K1" else what
+    t1, t2 = plan["tile"]
+    shape = (t1, t2, plan["threads"])
+    key = compiled_key(p, dtype, kernel)
+    if key is not None:
+        nf = what if fam == "K1" else KIND_FIELDS[what]
+        nr = nf if fam == "K1" else KIND_RAW[nf]
+        tile = degree_tile(p, nf, nr, ITEMSIZE[dtype])
+        if tile is not None and shape == (*tile, tile_threads(*tile, p)):
+            return f"{fam} {dt} p={p} {label} {t1}x{t2} compiled"
+    if (dt == _F32 and p == 4 and shape == (*MAIN_TILE, MAIN_TILE[0] * MAIN_TILE[1])
+            and (fam != "K2+band" or what == "westervelt")):
+        return f"{fam} {dt} p=4 {label} {t1}x{t2} main"
+    return f"{fam} {dt} p={p} {label} general"
+
+
+def tile_plan(gdims, p: int, nf: int, dtype, nr=None, kernel=None) -> dict:
     """The launch shape of the tiled K1/K2 kernels on a [G0, G1, G2] lattice
     of degree p with ``nf`` stencil fields of ``dtype``, formed from ``nr``
     raw operands per node (K1: nr = nf, the default; K2: u0, v0, kvpp and,
-    for two fields, kvp).
+    for two fields, kvp). ``kernel`` (as ``compiled_key``) names the
+    launch: where csrc/tiles.cuh compiles a tile for it, the lattice holds
+    that tile along g1 and g2 and the card gets ``MIN_BLOCKS`` blocks (the
+    slab halved as below), the plan is that tile's (``degree_plan``);
+    otherwise, and without ``kernel``, the general plan below.
 
     Returns a dict: ``tile`` (t1, t2), the owned nodes of a tile along g1,
     g2 (whole cells; the last tile of an axis is cut at the lattice's end);
@@ -168,8 +270,43 @@ def tile_plan(gdims, p: int, nf: int, dtype, nr=None) -> dict:
     lattice; the tile is halved until it fits ``SMEM_TARGET``, then the slab
     and the tile are halved while the grid has fewer than ``MIN_BLOCKS``
     blocks. Raises ValueError for a plan a block cannot run."""
-    return dict(_tile_plan(tuple(int(g) for g in gdims), int(p), int(nf), int(nr or nf),
-                           ITEMSIZE[dtype], TILE_NODES, SLAB_CELLS, SMEM_TARGET, MIN_BLOCKS))
+    gdims = tuple(int(g) for g in gdims)
+    nr = int(nr or nf)
+    if kernel is not None and compiled_key(p, dtype, kernel) is not None:
+        plan = degree_plan(gdims, p, nf, dtype, nr)
+        if plan is not None:
+            return plan
+    return dict(_tile_plan(gdims, int(p), int(nf), nr, ITEMSIZE[dtype], TILE_NODES, SLAB_CELLS,
+                           SMEM_TARGET, MIN_BLOCKS))
+
+
+def degree_plan(gdims, p: int, nf: int, dtype, nr=None):
+    """The plan of ``degree_tile``'s tile on a [G0, G1, G2] lattice (the
+    keys of ``tile_plan``): the slab starts at ``SLAB_CELLS`` cells, cut to
+    the lattice, and is halved while the grid has fewer than ``MIN_BLOCKS``
+    blocks. None where no tile fits, the lattice is narrower than the tile
+    along g1 or g2 (in cells), or the grid stays below ``MIN_BLOCKS``."""
+    out = _degree_plan(tuple(int(g) for g in gdims), int(p), int(nf), int(nr or nf),
+                       ITEMSIZE[dtype], SLAB_CELLS, MIN_BLOCKS)
+    return None if out is None else dict(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _degree_plan(gdims, p, nf, nr, itemsize, slab_cells, min_blocks):
+    tile = degree_tile(p, nf, nr, itemsize)
+    n = lattice_grid(gdims, p)
+    if tile is None or tile[0] > n[1] * p or tile[1] > n[2] * p:
+        return None
+    t1, t2 = tile
+    S = min(slab_cells, n[0])
+    while np.prod(_grid(gdims, n[0], t1, t2, S)) < min_blocks and S > 1:
+        S //= 2
+    grid = _grid(gdims, n[0], t1, t2, S)
+    if np.prod(grid) < min_blocks or max(grid[1:]) > GRID_MAX:
+        return None
+    return (("tile", (t1, t2)), ("slab", S), ("halo", (p, 1)),
+            ("threads", tile_threads(t1, t2, p)),
+            ("smem", tile_smem_bytes(t1, t2, p, nf, nr, itemsize)), ("grid", grid))
 
 
 def _grid(gdims, n0, t1, t2, S):
@@ -526,7 +663,8 @@ def stiffness_apply(xs, Fs, p: int) -> torch.Tensor:
     """y = Σ_f K_{F_f}(x_f) for 1 or 2 lattice fields [G0, G1, G2].
 
     CUDA tensors launch the K1 kernel (``csrc/stiffness.cu``, shaped by
-    ``tile_plan``) on the current stream; CPU tensors run
+    ``tile_plan``: a compiled tile of ``csrc/tiles.cuh`` where the degree
+    and type have one) on the current stream; CPU tensors run
     ``stiffness_plain``. Anything else raises. With
     ``FUS_V3=0`` in the environment (read at every call, as the JAX package's
     ``LatticePallasStiffness.apply`` reads it) the two-kernel path runs
@@ -539,9 +677,11 @@ def stiffness_apply(xs, Fs, p: int) -> torch.Tensor:
     if xs[0].device.type == "cpu":
         return stiffness_plain(xs, Fs, p)
     y = torch.empty_like(xs[0])
-    plan = tile_plan(xs[0].shape, p, len(xs), xs[0].dtype)
+    kernel = ("K1", len(xs))
+    plan = tile_plan(xs[0].shape, p, len(xs), xs[0].dtype, kernel=kernel)
     _launch("fus_stiffness_apply", "K1 stiffness", xs, Fs, exts, p, [y], [plan_ints(plan)])
     stiffness_apply.launches += 1
+    stiffness_apply.tiles[tile_kernel(plan, p, xs[0].dtype, kernel)] += 1
     return y
 
 
@@ -578,7 +718,9 @@ def stiffness_axes12_apply(xs, Fs, yA, p: int) -> torch.Tensor:
     return yA
 
 
-# kernel launches of each wrapper (CUDA tensors only)
+# kernel launches of each wrapper (CUDA tensors only); K1's also by the
+# kernel each took (``tile_kernel``)
 stiffness_apply.launches = 0
+stiffness_apply.tiles = collections.Counter()
 stiffness_axis0_apply.launches = 0
 stiffness_axes12_apply.launches = 0

@@ -8,7 +8,9 @@ Each tree's kernel library is built by its own ``_build.py`` (in its own
 process); then ``cuobjdump -sass`` dumps both, and every kernel whose
 mangled name contains one of ``KERNELS`` is compared instruction for
 instruction (the encodings included). Prints one line per kernel and exits
-1 if a kernel differs or is missing from either library.
+1 if a kernel differs or is missing from the second library; kernels only
+the second has (the compiled tiles of ``csrc/tiles.cuh`` against a tree
+before them) are listed as new.
 """
 
 import re
@@ -17,7 +19,9 @@ import sys
 from pathlib import Path
 
 KERNELS = ("stiffness_tile_kernel", "stage_tile_kernel", "step_wave_kernel", "stage_a_kernel",
-           "stage_b_kernel", "stiffness_axis0_kernel", "stiffness_axes12_kernel")
+           "stage_b_kernel", "stiffness_axis0_kernel", "stiffness_axes12_kernel",
+           "stage_band_kernel", "stiffness_fixed_kernel", "stage_fixed_kernel",
+           "stage_band_fixed_kernel")
 
 
 def library(tree: str) -> Path:
@@ -51,15 +55,19 @@ def main() -> int:
     a, b = (sass(library(tree), cuobjdump) for tree in sys.argv[1:3])
     same = True
     for name in sorted(set(a) | set(b)):
-        if name not in a or name not in b:
-            print(f"missing in {'the first' if name not in a else 'the second'}: {name}")
+        if name not in b:
+            print(f"missing in the second: {name}")
             same = False
+            continue
+        if name not in a:
+            print(f"new in the second ({len(b[name])} lines): {name}")
             continue
         equal = a[name] == b[name]
         same &= equal
         print(f"{'same' if equal else 'DIFFERENT'} ({len(a[name])} / {len(b[name])} lines): "
               f"{name}")
-    print(f"{len(a)} kernels compared: {'all the same' if same else 'some differ'}")
+    print(f"{len(set(a) & set(b))} kernels compared, {len(set(b) - set(a))} new: "
+          f"{'all compared the same' if same else 'some differ'}")
     return 0 if same else 1
 
 

@@ -4,6 +4,18 @@ non-final on the HITU lattice (80,47,47) p=4 (unit cells), K2 ``linear``
 non-final and K1 constant on the 104³ p=4 headline lattice, fp32.
 
     python3 fenicsxfus_tpu_torch/tools/tile_variants.py [variant ...]
+    python3 fenicsxfus_tpu_torch/tools/tile_variants.py --in <tree> general
+
+The second form times the package of the checkout ``<tree>`` (``.`` for
+this one, or an unpacked ``git archive`` of the parent) at the shapes of the
+compiled tiles of ``csrc/tiles.cuh`` (``GENERAL_SHAPES``: PH1 SC2-BM7's K2
+``focused`` at p = 5, the headline's fp64 K1, HITU's two-field fp64 K1,
+``operator_speed``'s fp32 K1 at p = 2, 3, 5, 6, the fp64 K2 band stage of
+``bowl_convergence`` at nx = 36), on operands seeded the same in every tree:
+per shape three medians of 10 launches (CUDA events), the device's time
+alone (``variants.device_ms``), the kernel each launch took where the tree
+counts it, and the SHA-256 of the output, so that two trees run in turns
+(parent, change, change, parent) compare in time and bit for bit.
 
 A source variant (``SOURCE_VARIANTS``) is a copy of this package with one
 change to the kernel sources, built and run in its own process by the
@@ -18,7 +30,7 @@ floor under the step time once the kernels are faster than the host.
 
 import time
 
-from variants import main, median_ms
+from variants import device_ms, main, median_ms
 
 # thread 0 of each block adds the clock cycles of each phase of a cell
 # (copy wait, form + sync, sums, closing sync) to a device array; K2 only
@@ -77,6 +89,93 @@ PLAN_VARIANTS = [
 ]
 PTXAS = ("stage_tile_kernelIfLi3ELb1E", "stage_tile_kernelIfLi0ELb1E",
          "stiffness_tile_kernelIfLi1ELb1E")
+# (label, kernel, dtype, degree, cells, fields or kind, DG-0): the general
+# mode's shapes, at their runs' lattices
+GENERAL_SHAPES = [
+    ("PH1 SC2-BM7 K2 focused DG-0 p=5", "K2", "float32", 5, (80, 47, 47), "focused", True),
+    ("headline K1 fp64 1 field", "K1", "float64", 4, (104, 104, 104), 1, False),
+    ("HITU K1 fp64 2 fields", "K1", "float64", 4, (80, 47, 47), 2, True),
+    ("operator_speed K1 p=2", "K1", "float32", 2, (169, 169, 169), 1, False),
+    ("operator_speed K1 p=3", "K1", "float32", 3, (112, 112, 112), 1, False),
+    ("operator_speed K1 p=5", "K1", "float32", 5, (67, 67, 67), 1, False),
+    ("operator_speed K1 p=6", "K1", "float32", 6, (56, 56, 56), 1, False),
+    ("bowl_convergence nx=36 K2+band westervelt fp64", "K2+band", "float64", 4, (36, 21, 21),
+     "westervelt", False),
+]
+
+
+def measure_general() -> None:
+    """The general mode (see above), in the process of the tree first on
+    ``sys.path``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from fenicsxfus_tpu_torch.ops import stage, stiffness
+    from fenicsxfus_tpu_torch.ops.lattice import LatticeStiffness
+    from fenicsxfus_tpu_torch.ops.stage import (
+        KIND_DENSE, KIND_FACET, KIND_FIELDS, pack_facet_vector, stage_apply,
+    )
+
+    dev = torch.device("cuda", 0)
+    for label, kernel, dtn, p, cells, what, dg0 in GENERAL_SHAPES:
+        dt = getattr(torch, dtn)
+        gen = torch.Generator(device=dev).manual_seed(18)
+        rng = np.random.default_rng(18)
+        lat = LatticeStiffness(cells, p, [0.12 / n for n in cells], dt)
+        gd = lat.gdims
+
+        def field():
+            return torch.randn(gd, generator=gen, device=dev, dtype=dt)
+
+        def coeff(c):
+            if dg0:
+                return stiffness.pack_field(lat, rng.uniform(0.5, 2.0, int(np.prod(cells))) * c,
+                                            dev)
+            return stiffness.pack_const(lat, c, dev)
+
+        if kernel == "K1":
+            xs = [field() for _ in range(what)]
+            Fs = [coeff(1.0 - 0.5 * f) for f in range(what)]
+
+            def fn():
+                return stiffness.stiffness_apply(xs, Fs, p)
+        else:
+            nfa = len(KIND_FACET[what])
+            facets = []
+            for _ in range(nfa):
+                f = np.zeros(gd)
+                for sl in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0],
+                           np.s_[:, :, -1]):
+                    f[sl] = rng.uniform(0.5, 1.5, f[sl].shape)
+                facets.append({k: torch.as_tensor(v, dtype=dt, device=dev)
+                               for k, v in pack_facet_vector(f, gd).items()})
+            args = dict(kind=what, u0=field(), v0=field(), kvp=field(), kvpp=field(), prev=None,
+                        Fs=[coeff(1e-3 * (1.0 - 0.5 * f)) for f in range(KIND_FIELDS[what])],
+                        dense=[torch.rand(gd, generator=gen, device=dev, dtype=dt)
+                               * (0.05 if n == "d2" else 1.0) + (0.0 if n == "d2" else 0.5)
+                               for n in KIND_DENSE[what]],
+                        facets=facets, scal=[0.3, 0.05] + [1.7, -0.6, 0.9, 0.4][: nfa - 1],
+                        p=p, final=False)
+            if kernel == "K2+band":
+                args["band"] = torch.randn((65, gd[1], gd[2]), generator=gen, device=dev,
+                                           dtype=dt)
+
+            def fn():
+                return stage_apply(**args)
+        # the kernel the launch took, where the tree counts it (``tiles``)
+        counter = getattr(stiffness.stiffness_apply if kernel == "K1" else stage_apply, "tiles",
+                          {})
+        before = dict(counter)
+        y = fn()
+        torch.cuda.synchronize()
+        took = [k for k, v in counter.items() if v != before.get(k, 0)]
+        sha = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+        ms = " / ".join(f"{median_ms(fn):.4f}" for _ in range(3))
+        print(f"  {label} {gd}: {ms} ms, alone {device_ms(fn):.4f} ms; sha256 {sha}; "
+              f"kernel {took[-1] if took else 'general (not counted)'}", flush=True)
+        del y
 
 
 def measure(mode: str) -> None:
@@ -91,6 +190,9 @@ def measure(mode: str) -> None:
         KIND_DENSE, KIND_FACET, KIND_FIELDS, pack_facet_vector, stage_apply, stage_plain,
     )
 
+    if mode == "general":
+        measure_general()
+        return
     plans, check = mode == "plans", mode != "ablation"
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)

@@ -145,8 +145,12 @@ def test_k2_matches_plain(grid, kind, present, final, dtype, cuda):
 # the tiled K1/K2 (csrc/tile.cuh): a lattice no tile divides and a channel
 # one cell across, on unit cells with O(1) coefficients (the stiffness term
 # as large as the rest, so a stencil fault shows), under the default plan
-# and under the main path's tile and slab (the minimum block count set to 1)
+# and under the main path's tile and slab (the minimum block count set to 1);
+# K1's and K2's also on "compiled", the lattice of two whole and one cut
+# compiled tile along g1 and g2 (csrc/tiles.cuh), 16 cells along g0, at the
+# degree and type
 TILE_GRIDS = [(13, 11, 17), (41, 1, 1)]
+COMPILED_GRIDS = TILE_GRIDS + ["compiled"]
 PLANS = ["default", "main-path tile"]
 
 
@@ -155,12 +159,38 @@ def _use_plan(plan, monkeypatch):
         monkeypatch.setattr(stiffness, "MIN_BLOCKS", 1)
 
 
+def _tile_grid(grid, degree, dtype, family):
+    """``grid``, or for "compiled" the cut-tile lattice of the widest
+    compiled tile of ``family`` ("K1", "K2", "K2+band") at the degree and
+    type ((13, 11, 17) where it has none); and whether the launches there
+    must take a compiled tile."""
+    if grid != "compiled":
+        return grid, False
+    dtn = str(dtype).split(".")[-1]
+    keys = [k for k in stiffness.COMPILED_TILES if k[:3] == (family, dtn, degree)]
+    if not keys:
+        return (13, 11, 17), False
+    tiles = []
+    for fam, _, p, what in keys:
+        nf = what if fam == "K1" else KIND_FIELDS[what]
+        nr = nf if fam == "K1" else stiffness.KIND_RAW[nf]
+        tiles.append(stiffness.degree_tile(p, nf, nr, stiffness.ITEMSIZE[dtype]))
+    return (16, 2 * max(t[0] for t in tiles) // degree + 1,
+            2 * max(t[1] for t in tiles) // degree + 1), True
+
+
+def _took(counter, before):
+    """The kernels (``ops/stiffness.py::tile_kernel``) launched since ``before``."""
+    return [k for k, v in counter.items() if v != before.get(k, 0)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("degree", range(1, 9))
 @pytest.mark.parametrize("plan", PLANS)
-@pytest.mark.parametrize("grid", TILE_GRIDS)
+@pytest.mark.parametrize("grid", COMPILED_GRIDS)
 def test_tiled_k1_matches_plain(grid, plan, degree, dtype, cuda, monkeypatch):
     _use_plan(plan, monkeypatch)
+    grid, compiled = _tile_grid(grid, degree, dtype, "K1")
     lat = LatticeStiffness(grid, degree, (1.0, 1.0, 1.0), dtype)
     rng = np.random.default_rng(degree)
     Fs = [pack_const(lat, 1.7, cuda),
@@ -168,27 +198,33 @@ def test_tiled_k1_matches_plain(grid, plan, degree, dtype, cuda, monkeypatch):
     xs = [torch.as_tensor(rng.standard_normal(lat.gdims), dtype=dtype, device=cuda)
           for _ in range(2)]
     for x_in, F_in in (([xs[0]], Fs[:1]), ([xs[1]], Fs[1:]), (xs, Fs), (xs, Fs[::-1])):
-        before = stiffness_apply.launches
+        before, tiles = stiffness_apply.launches, dict(stiffness_apply.tiles)
         y = stiffness_apply(x_in, F_in, degree)
         assert stiffness_apply.launches == before + 1
         assert _rel(y, stiffness_plain(x_in, F_in, degree)) < TOLS[dtype]
+        took = _took(stiffness_apply.tiles, tiles)
+        assert len(took) == 1 and (not compiled or took[0].endswith("compiled")), took
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("degree", range(1, 9))
 @pytest.mark.parametrize("kind", sorted(KIND_FIELDS))
 @pytest.mark.parametrize("plan", PLANS)
-@pytest.mark.parametrize("grid", TILE_GRIDS)
+@pytest.mark.parametrize("grid", COMPILED_GRIDS)
 def test_tiled_k2_matches_plain(grid, plan, kind, degree, dtype, cuda, monkeypatch):
     _use_plan(plan, monkeypatch)
+    grid, compiled = _tile_grid(grid, degree, dtype, "K2")
+    compiled &= stiffness.compiled_key(degree, dtype, ("K2", kind)) is not None
     lat = LatticeStiffness(grid, degree, (1.0, 1.0, 1.0), dtype)
     rng = np.random.default_rng(degree + 10 * len(kind))
     for (present, final), dg0 in ((STAGES[2], False), (STAGES[2], True),
                                   (STAGES[6], False), (STAGES[6], True)):
         args = _stage_args(kind, lat, rng, cuda, present, final, dg0)
-        before = stage_apply.launches[kind]
+        before, tiles = stage_apply.launches[kind], dict(stage_apply.tiles)
         got = stage_apply(*args)
         assert stage_apply.launches[kind] == before + 1
+        took = _took(stage_apply.tiles, tiles)
+        assert len(took) == 1 and (not compiled or took[0].endswith("compiled")), took
         ref = stage_plain(*args)
         for a, b in (zip(got, ref) if final else [(got, ref)]):
             assert _rel(a, b) < TOLS[dtype]
@@ -705,9 +741,11 @@ def test_k3_model_matches_k2_model(name, cuda, monkeypatch):
 @pytest.mark.parametrize("degree", range(1, 9))
 @pytest.mark.parametrize("kind", sorted(KIND_FIELDS))
 @pytest.mark.parametrize("plan", PLANS)
-@pytest.mark.parametrize("grid", TILE_GRIDS)
+@pytest.mark.parametrize("grid", COMPILED_GRIDS)
 def test_k2_band_matches_plain(grid, plan, kind, degree, dtype, cuda, monkeypatch):
     _use_plan(plan, monkeypatch)
+    grid, compiled = _tile_grid(grid, degree, dtype, "K2+band")
+    compiled &= stiffness.compiled_key(degree, dtype, ("K2+band", kind)) is not None
     lat = LatticeStiffness(grid, degree, (1.0, 1.0, 1.0), dtype)
     rng = np.random.default_rng(degree + 3 * len(kind))
     G0, G1, G2 = lat.gdims
@@ -715,9 +753,12 @@ def test_k2_band_matches_plain(grid, plan, kind, degree, dtype, cuda, monkeypatc
         args = _stage_args(kind, lat, rng, cuda, present, final, False)
         band = torch.as_tensor(rng.standard_normal((rows, G1, G2)), dtype=dtype, device=cuda)
         before = dict(stage_apply.band_launches), dict(stage_apply.launches)
+        tiles = dict(stage_apply.tiles)
         got = stage_apply(*args, band=band)
         assert stage_apply.band_launches[kind] == before[0].get(kind, 0) + 1
         assert dict(stage_apply.launches) == before[1]
+        took = _took(stage_apply.tiles, tiles)
+        assert len(took) == 1 and (not compiled or took[0].endswith("compiled")), took
         ref = stage_plain(*args, band=band)
         for a, b in (zip(got, ref) if final else [(got, ref)]):
             assert _rel(a, b) < TOLS[dtype]

@@ -52,10 +52,11 @@ def _facet_field(rng, gdims):
     return f
 
 
-def _operands(kind, hetero, seed=0):
-    """Random K2 operands of ``kind`` on the (6,4,4) p=3 lattice: JAX packed
-    coefficients, state fields, dense extras and packed facets (numpy)."""
-    jops = JaxOps(create_box(GRID, (0, 0, 0), HI), P, dtype=jnp.float64)
+def _operands(kind, hetero, seed=0, degree=P):
+    """Random K2 operands of ``kind`` on the (6,4,4) lattice of ``degree``
+    (p = 3): JAX packed coefficients, state fields, dense extras and packed
+    facets (numpy)."""
+    jops = JaxOps(create_box(GRID, (0, 0, 0), HI), degree, dtype=jnp.float64)
     pk = LatticePallasStiffness(jops.lattice, interpret=True)
     gd = pk.gdims
     rng = np.random.default_rng(seed)
@@ -69,7 +70,7 @@ def _operands(kind, hetero, seed=0):
     return pk, Fs, f, dense, pfs
 
 
-def _torch_args(kind, final, operands):
+def _torch_args(kind, final, operands, degree=P):
     """``stage_apply`` arguments of the port for ``_operands``' output."""
     _, Fs, f, dense, pfs = operands
     t = {k: torch.from_numpy(v) for k, v in f.items()}
@@ -79,7 +80,7 @@ def _torch_args(kind, final, operands):
         Fs=[coeff_from_jax({k: np.asarray(v) for k, v in F.items()}, device="cpu") for F in Fs],
         dense=[torch.from_numpy(d) for d in dense],
         facets=[{k: torch.from_numpy(v) for k, v in pf.items()} for pf in pfs],
-        scal=_scal(kind, final), p=P, final=final,
+        scal=_scal(kind, final), p=degree, final=final,
     )
 
 
@@ -87,9 +88,22 @@ def _torch_args(kind, final, operands):
 @pytest.mark.parametrize("hetero", [False, True])
 @pytest.mark.parametrize("kind", KINDS)
 def test_plain_matches_stage_v3(kind, hetero, final):
-    operands = _operands(kind, hetero)
+    _check_stage_v3(kind, hetero, final, P)
+
+
+@pytest.mark.parametrize("final", [False, True])
+@pytest.mark.parametrize("hetero", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_matches_stage_v3_p5(kind, hetero, final):
+    """At p = 5, the degree of K2's compiled fp32 tile (csrc/tiles.cuh: PH1
+    SC2-BM7's focused run) and of an fp64 one."""
+    _check_stage_v3(kind, hetero, final, 5)
+
+
+def _check_stage_v3(kind, hetero, final, degree):
+    operands = _operands(kind, hetero, degree=degree)
     pk, Fs, f, dense, pfs = operands
-    got = stage_apply(**_torch_args(kind, final, operands))
+    got = stage_apply(**_torch_args(kind, final, operands, degree))
 
     stage = FusedRKStageV3(pk, kind, (hetero,) * len(Fs), jax_tables(4), jnp.float64)
     j = {k: jnp.asarray(v) for k, v in f.items()}

@@ -64,9 +64,10 @@ def test_pack_matches_jax_layout(degree):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("degree", [2, 3, 4])
+@pytest.mark.parametrize("degree", [2, 3, 4, 5, 6])
 def test_plain_matches_apply_v3(degree, case):
-    """The plain K1 version against the TPU kernel in interpret mode."""
+    """The plain K1 version against the TPU kernel in interpret mode, at
+    every degree with a compiled tile (csrc/tiles.cuh) among them."""
     jlat, tlat, coeffs, xs = _setup(degree)
     pk = LatticePallasStiffness(jlat, interpret=True)
     if case == "const":
