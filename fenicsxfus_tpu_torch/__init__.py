@@ -44,45 +44,49 @@ per rank, gloo on the CPU, NCCL on the card). Entry points run on the card
 unless the caller asks for the CPU (``device="cpu"``).
 """
 
-from .core.bowl import bowl_cap_area, create_bowl_box  # noqa: F401
-from .core.mesh import (  # noqa: F401
-    Mesh,
-    as_unstructured,
-    create_box,
-    create_interval,
-    create_rectangle,
-    reorder_locality,
-    tag_boundaries,
-)
-from .analysis.analytical import (  # noqa: F401
-    PenetrableExact2D,
-    SoundHardExact2D,
-    SoundSoftExact2D,
-)
-from .models.experimental import (  # noqa: F401
-    LinearSpectralAdaptive,
-    LinearSpectralNewmark,
-    LinearSpectralS2,
-    LinearSpectralSciPy,
-    LinearSpectralSponge,
-    WesterveltSpectralAdaptive,
-    WesterveltSpectralSciPy,
-)
-from .models.focused import WesterveltSpectralFocused, bowl_delays  # noqa: F401
-from .models.linear import (  # noqa: F401
-    LinearExplicit,
-    LinearSpectralExplicit,
-    LinearSpectralImplicit,
-)
-from .models.lossy import LossySpectralExplicit, LossySpectralImplicit  # noqa: F401
-from .models.westervelt import WesterveltSpectralExplicit  # noqa: F401
-from .ops.operators import SEMOperators  # noqa: F401
-from .utils import (  # noqa: F401
-    compute_diffusivity_of_sound,
-    compute_eval_params,
-    estimate_stable_dt,
-    eval_function,
-)
+from .analysis import timing as _timing
+
+with _timing.span("fus.import"):
+    from .core.bowl import bowl_cap_area, create_bowl_box  # noqa: F401
+    from .core.mesh import (  # noqa: F401
+        Mesh,
+        as_unstructured,
+        create_box,
+        create_interval,
+        create_rectangle,
+        reorder_locality,
+        tag_boundaries,
+    )
+    from .analysis.analytical import (  # noqa: F401
+        PenetrableExact2D,
+        SoundHardExact2D,
+        SoundSoftExact2D,
+    )
+    from .models.experimental import (  # noqa: F401
+        LinearSpectralAdaptive,
+        LinearSpectralNewmark,
+        LinearSpectralS2,
+        LinearSpectralSciPy,
+        LinearSpectralSponge,
+        WesterveltSpectralAdaptive,
+        WesterveltSpectralSciPy,
+    )
+    from .models.focused import WesterveltSpectralFocused, bowl_delays  # noqa: F401
+    from .models.linear import (  # noqa: F401
+        LinearExplicit,
+        LinearSpectralExplicit,
+        LinearSpectralImplicit,
+    )
+    from .models.lossy import LossySpectralExplicit, LossySpectralImplicit  # noqa: F401
+    from .models.westervelt import WesterveltSpectralExplicit  # noqa: F401
+    from .ops.operators import SEMOperators  # noqa: F401
+    from .utils import (  # noqa: F401
+        compute_diffusivity_of_sound,
+        compute_eval_params,
+        estimate_stable_dt,
+        eval_function,
+    )
+
 
 __all__ = [
     "Mesh",

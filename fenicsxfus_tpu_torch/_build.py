@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from .analysis.timing import traced
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -63,6 +65,7 @@ def _run(procs) -> str:
     return "".join(out + err for _, _, out, err in results)
 
 
+@traced("fus.setup.library")
 def build() -> tuple[Path, float, str]:
     """Compile the kernels if no library for the current sources exists.
 
@@ -104,6 +107,7 @@ _DP = ctypes.POINTER(ctypes.c_double)
 
 
 @functools.cache
+@traced("fus.setup.library")
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use) with its C signatures."""
     path, _, _ = build()

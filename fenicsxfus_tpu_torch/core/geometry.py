@@ -29,6 +29,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import native
+from ..analysis.timing import span
 from . import geometry_chunks
 from .geometry_chunks import chunk_factors
 from .geometry_chunks import jacobians as _jacobians
@@ -151,6 +152,8 @@ def quadrature_factors(
     if nc >= PARALLEL_CELLS and native.enabled():
         grids = np.meshgrid(*([x1] * d), indexing="ij")
         qpts = np.stack([g.reshape(-1) for g in grids], axis=-1)
+        with span("fus.setup.library"):  # built and loaded at its first call
+            native.library()
         wdetJ, G = native.volume_factors(mesh.cell_vertices(), qpts, w)
         # w > 0, so w·|det J| is 0 exactly where det J is (as the numpy
         # path, count the points)

@@ -33,11 +33,12 @@ import numpy as np
 import torch
 
 from ..analysis.analytical import oneil_axial_amplitude
+from ..analysis.timing import snapshot, span, traced, tracing
 from ..core.bowl import create_bowl_box
 from ..core.mesh import create_box, tag_boundaries
 from ..models.focused import WesterveltSpectralFocused
 from ..models.westervelt import WesterveltSpectralExplicit
-from ..utils import estimate_stable_dt
+from ..utils import estimate_stable_dt, init_device
 
 # transducer geometry: half-aperture a, radius of curvature, domain length
 # and width (Groth et al. 2021; domain lengths from the reference mains:
@@ -88,6 +89,7 @@ def _cfl_dt(cfl: float, h: float, c0: float, degree: int, f0: float):
     return 1 / f0 / spp, spp
 
 
+@traced("fus.setup", sync=True)
 def build_model(kind: str, tx: str, medium: str, nx: int, degree: int = 4,
                 f0: float | None = None, cfl: float = 0.4, dtype=None,
                 linear: bool = False, nyz: int | None = None, device="cuda"):
@@ -103,18 +105,22 @@ def build_model(kind: str, tx: str, medium: str, nx: int, degree: int = 4,
     L, W = g["L"], g["W"]
     h = L / nx
     nyz = nyz or max(int(round(W / h)), 2)
-    mesh = create_box((nx, nyz, nyz), (0.0, -W / 2, -W / 2), (L, W / 2, W / 2))
     a = g["a"]
     eps = 1e-9
-    tag_boundaries(mesh, {1: lambda x: (x[0] < eps) & (np.hypot(x[1], x[2]) <= a)}, default=2)
+    with span("fus.setup.mesh"):
+        mesh = create_box((nx, nyz, nyz), (0.0, -W / 2, -W / 2), (L, W / 2, W / 2))
+        tag_boundaries(mesh, {1: lambda x: (x[0] < eps) & (np.hypot(x[1], x[2]) <= a)},
+                       default=2)
     dt, spp = _cfl_dt(cfl, h, c0, degree, f0)
 
-    model = WesterveltSpectralFocused(
-        mesh, None, degree, c0, rho0, delta0, beta0, f0, p0, c0, 4, dt,
-        aperture_radius=a, focal_distance=g["roc"], center=np.array([0.0, 0.0, 0.0]),
-        dtype=dtype, device=device,
-    )
-    model.init()
+    init_device(device)
+    with span("fus.setup.assembly"):
+        model = WesterveltSpectralFocused(
+            mesh, None, degree, c0, rho0, delta0, beta0, f0, p0, c0, 4, dt,
+            aperture_radius=a, focal_distance=g["roc"], center=np.array([0.0, 0.0, 0.0]),
+            dtype=dtype, device=device,
+        )
+        model.init()
     return model, h, dt, spp
 
 
@@ -135,6 +141,7 @@ def bowl_mesh(tx: str, nx: int):
     return mesh, h
 
 
+@traced("fus.setup", sync=True)
 def build_bowl_model(kind: str, tx: str, medium: str, nx: int, degree: int = 4,
                      f0: float | None = None, cfl: float = 0.3, dtype=None,
                      linear: bool = False, device="cuda"):
@@ -146,34 +153,28 @@ def build_bowl_model(kind: str, tx: str, medium: str, nx: int, degree: int = 4,
     ``FUS_BOWL_BLEND_MULT`` = 2 sagittae and ``FUS_BOWL_HOLD_MULT`` = 0.25
     blend lengths (the JAX package's production defaults), and dt, the CFL
     rule on the uniform spacing, is clamped by the measured operator
-    spectrum (``utils.estimate_stable_dt``). The host time of the setup's
-    parts is added to ``model.ops.setup_seconds``. Returns (model, h, dt,
-    steps per period)."""
+    spectrum (``utils.estimate_stable_dt``). Returns (model, h, dt, steps
+    per period)."""
     dtype = dtype or torch.float32
     f0 = f0 or F0_FULL
     c0, rho0, p0, delta0, beta0 = _medium(kind, tx, medium, f0, linear)
-    t0 = time.perf_counter()
-    mesh, h = bowl_mesh(tx, nx)
-    t_mesh = time.perf_counter() - t0
+    with span("fus.setup.mesh"):
+        mesh, h = bowl_mesh(tx, nx)
 
     # the CFL rule on the uniform spacing; stability on the deformed cells
     # is the measured spectrum's (below)
     dt, spp = _cfl_dt(cfl, h, c0, degree, f0)
 
-    t0 = time.perf_counter()
-    model = WesterveltSpectralExplicit(mesh, None, degree, c0, rho0, delta0, beta0, f0, p0, c0,
-                                       4, dt, dtype=dtype, device=device)
-    model.init()
-    _synchronize(model)
-    t_model = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    init_device(device)
+    with span("fus.setup.assembly"):
+        model = WesterveltSpectralExplicit(mesh, None, degree, c0, rho0, delta0, beta0, f0, p0,
+                                           c0, 4, dt, dtype=dtype, device=device)
+        model.init()
     dt_star = estimate_stable_dt(model.ops, c0, rho0, rk_order=4)
-    t_dt = time.perf_counter() - t0
     if dt_star < dt:
         spp = int(1 / f0 / dt_star) + 1
         dt = 1 / f0 / spp
         model.dt = dt
-    model.ops.setup_seconds.update(mesh=t_mesh, model=t_model, estimate_stable_dt=t_dt)
     return model, h, dt, spp
 
 
@@ -216,9 +217,24 @@ class HituRun:
     setup_s: float  # mesh, host assembly and upload
     solve_s: float  # the time march with in-loop recording
     nsteps: int
-    # host seconds of the setup's parts on the bowl-fitted mesh
-    # (build_bowl_model; "model" includes "volume_factors" and "upload")
+    # host seconds of the set-up's phases (``split_setup``)
     setup_split: dict | None = None
+
+
+SETUP_PHASES = ("library", "mesh", "context", "operators", "assembly", "source", "upload",
+                "stable_dt")
+
+
+def split_setup(before: dict, after: dict) -> dict:
+    """The self seconds of each ``fus.setup.<phase>`` span between two
+    ``analysis.timing.snapshot()``s, and under ``"other"`` the self seconds of
+    ``fus.setup``, the entry's time that no phase covers."""
+    def self_s(name):
+        return after.get(name, {}).get("self_s", 0.0) - before.get(name, {}).get("self_s", 0.0)
+
+    split = {ph: self_s(f"fus.setup.{ph}") for ph in SETUP_PHASES}
+    split["other"] = self_s("fus.setup")
+    return split
 
 
 def run(kind: str, tx: str, medium: str, nx: int = 80, degree: int = 4,
@@ -233,16 +249,18 @@ def run(kind: str, tx: str, medium: str, nx: int = 80, degree: int = 4,
         raise ValueError("nyz is not supported with bowl=True: the bowl-fitted mesh sets its "
                          "own lateral grid")
     f0 = f0 or (F0_FULL if full else 0.5e6)
+    before = snapshot()
     t0 = time.perf_counter()
-    if bowl:
-        model, h, dt, spp = build_bowl_model(kind, tx, medium, nx, degree=degree, f0=f0,
-                                             dtype=dtype, device=device)
-    else:
-        model, h, dt, spp = build_model(kind, tx, medium, nx, degree=degree, f0=f0,
-                                        dtype=dtype, nyz=nyz, device=device)
+    with tracing():
+        if bowl:
+            model, h, dt, spp = build_bowl_model(kind, tx, medium, nx, degree=degree, f0=f0,
+                                                 dtype=dtype, device=device)
+        else:
+            model, h, dt, spp = build_model(kind, tx, medium, nx, degree=degree, f0=f0,
+                                            dtype=dtype, nyz=nyz, device=device)
     _synchronize(model)
     setup = time.perf_counter() - t0
-    split = dict(model.ops.setup_seconds) if bowl else None
+    split = split_setup(before, snapshot())
     c0 = MEDIA[medium]["c0"]
     tf = final_time or (TRANSDUCERS[tx]["L"] / c0 + 8.0 / f0)
     ndofs = model.number_of_dofs()
@@ -250,8 +268,8 @@ def run(kind: str, tx: str, medium: str, nx: int = 80, degree: int = 4,
     print(f"HITU {name}: f0={f0/1e6:.2f} MHz  p={degree}  {c0 / f0 / h:.2f} elems/wavelength  "
           f"DOFs={ndofs/1e6:.2f}M  dt={dt:.3e}  steps={int(round(tf / dt))}  "
           f"steps/period={spp}  {model.step_kind} step on {model.device}")
-    if split:
-        print("  setup split (host s): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    print("  setup split (host s, each phase's own): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
     x, times, ys, elapsed = _record_axial(model, tx, tf)
     amp = steady_amplitude(times, ys, f0)
     i_pk = int(np.argmax(amp))

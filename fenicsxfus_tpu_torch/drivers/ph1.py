@@ -42,13 +42,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..analysis.timing import span, traced
 from ..core.bowl import create_bowl_box
 from ..core.mesh import create_box, tag_boundaries
 from ..models.focused import WesterveltSpectralFocused
 from ..models.linear import LinearSpectralExplicit
 from ..models.lossy import LossySpectralExplicit
 from ..models.westervelt import WesterveltSpectralExplicit
-from ..utils import compute_diffusivity_of_sound, estimate_stable_dt, resolve_device
+from ..utils import (compute_diffusivity_of_sound, estimate_stable_dt, init_device,
+                     resolve_device)
 from .hitu import _synchronize, check_artifact
 
 # --------------------------------------------------------------------------
@@ -177,6 +179,7 @@ def tag_scenario(mesh, sc: int):
     return mesh
 
 
+@traced("fus.setup", sync=True)
 def build_model(sc: int, bm: int, nx: int, dtype=None, cfl=0.5, bowl: bool = False,
                 device="cuda"):
     """Assemble the model for scenario ``sc``, benchmark ``bm``: SC1 the
@@ -189,16 +192,18 @@ def build_model(sc: int, bm: int, nx: int, dtype=None, cfl=0.5, bowl: bool = Fal
     degree = BM_DEGREE[bm]
     if bowl and sc != 2:
         raise ValueError("bowl meshes apply to the SC2 (focused) scenario")
-    if bowl:
-        _, nyz = _lateral_cells(nx)
-        mesh, _focus = create_bowl_box((nx, nyz, nyz), (0.0, -DOMAIN_W / 2, -DOMAIN_W / 2),
-                                       (DOMAIN_L, DOMAIN_W / 2, DOMAIN_W / 2), SC2_ROC,
-                                       SC2_APERTURE)
-        h_cfl = mesh.h_min()
-    else:
-        mesh, h_cfl = build_mesh(nx, degree)
-        tag_scenario(mesh, sc)
-    c0, rho0, delta0 = build_media(mesh, bm)
+    with span("fus.setup.mesh"):
+        if bowl:
+            _, nyz = _lateral_cells(nx)
+            mesh, _focus = create_bowl_box((nx, nyz, nyz), (0.0, -DOMAIN_W / 2, -DOMAIN_W / 2),
+                                           (DOMAIN_L, DOMAIN_W / 2, DOMAIN_W / 2), SC2_ROC,
+                                           SC2_APERTURE)
+            h_cfl = mesh.h_min()
+        else:
+            mesh, h_cfl = build_mesh(nx, degree)
+            tag_scenario(mesh, sc)
+    with span("fus.setup.assembly"):
+        c0, rho0, delta0 = build_media(mesh, bm)
 
     cmax = float(np.max(c0))
     period = 1.0 / F0
@@ -207,24 +212,26 @@ def build_model(sc: int, bm: int, nx: int, dtype=None, cfl=0.5, bowl: bool = Fal
     dt = period / steps_per_period
 
     kw = dict(dtype=dtype, device=device)
-    if sc == 1 and bm == 1:
-        model = LinearSpectralExplicit(mesh, None, degree, c0, rho0, F0, P0, 1500.0, 4, dt,
-                                       **kw)
-    elif sc == 1:
-        model = LossySpectralExplicit(mesh, None, degree, c0, rho0, delta0, F0, P0, 1500.0, 4,
-                                      dt, **kw)
-    elif bowl:
-        # curved transducer facets: plain uniform source, focusing from the
-        # geometry (β = 0: PH1 is linear/lossy)
-        model = WesterveltSpectralExplicit(mesh, None, degree, c0, rho0, delta0, 0.0, F0, P0,
-                                           1500.0, 4, dt, **kw)
-    else:
-        # the focused bowl as a phased flat aperture (O'Neil-validated)
-        model = WesterveltSpectralFocused(mesh, None, degree, c0, rho0, delta0, 0.0, F0, P0,
-                                          1500.0, 4, dt, aperture_radius=SC2_APERTURE,
-                                          focal_distance=SC2_ROC,
-                                          center=np.array([0.0, 0.0, 0.0]), **kw)
-    model.init()
+    init_device(device)
+    with span("fus.setup.assembly"):
+        if sc == 1 and bm == 1:
+            model = LinearSpectralExplicit(mesh, None, degree, c0, rho0, F0, P0, 1500.0, 4, dt,
+                                           **kw)
+        elif sc == 1:
+            model = LossySpectralExplicit(mesh, None, degree, c0, rho0, delta0, F0, P0, 1500.0,
+                                          4, dt, **kw)
+        elif bowl:
+            # curved transducer facets: plain uniform source, focusing from the
+            # geometry (β = 0: PH1 is linear/lossy)
+            model = WesterveltSpectralExplicit(mesh, None, degree, c0, rho0, delta0, 0.0, F0,
+                                               P0, 1500.0, 4, dt, **kw)
+        else:
+            # the focused bowl as a phased flat aperture (O'Neil-validated)
+            model = WesterveltSpectralFocused(mesh, None, degree, c0, rho0, delta0, 0.0, F0,
+                                              P0, 1500.0, 4, dt, aperture_radius=SC2_APERTURE,
+                                              focal_distance=SC2_ROC,
+                                              center=np.array([0.0, 0.0, 0.0]), **kw)
+        model.init()
     if bowl:
         # skewed blend-band cells: clamp dt with the measured spectrum
         dt_star = estimate_stable_dt(model.ops, c0, rho0, rk_order=4)

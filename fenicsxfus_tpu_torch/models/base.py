@@ -39,6 +39,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..analysis.timing import span
 from ..core.gll import gll_points_weights_01, lagrange_eval_gll
 from ..core.space import cell_node_coords
 from ..ops.cg import cg_solve
@@ -381,10 +382,18 @@ class ExplicitModelBase(SpectralModelBase):
         """Time-march like ``rk`` while recording u at sensor ``points``
         [dim, n] after every step, on the device inside the loop. Returns
         (u, v, t, times [n_steps] float64 numpy, ys [n_steps, n] device
-        tensor)."""
-        solve = make_recording_scan(self._make_step(), self._record_plan(points))
-        u, v, t, ys = solve(self.consts, self.u_n, self.v_n, t0, tf, self.dt)
-        times = t0 + np.cumsum(step_sizes(t0, tf, self.dt))
+        tensor). The spans of the per-call plan are opened here, not in
+        ``_make_step`` and ``_record_plan``, so that the constructor's
+        ``_build`` stays a set-up cost."""
+        with span("fus.rk_record"):
+            with span("fus.loop.step_build"):
+                step = self._make_step()
+            with span("fus.loop.sensor_plan"):
+                record = self._record_plan(points)
+            with span("fus.loop.march"):
+                solve = make_recording_scan(step, record)
+                u, v, t, ys = solve(self.consts, self.u_n, self.v_n, t0, tf, self.dt)
+            times = t0 + np.cumsum(step_sizes(t0, tf, self.dt))
         self.u_n, self.v_n, self.t = u, v, float(t)
         return u, v, float(t), times, ys
 

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from ..analysis.timing import span
 from .base import ExplicitModelBase, _cellwise
 from .common import source_window
 
@@ -89,27 +90,28 @@ class WesterveltSpectralFocused(ExplicitModelBase):
         self.consts["coeff_v"] = ops.stiff_coeff(delta / (rho * c * c))
         self.consts["abc_diag"] = ops.to_device(ops.facet_vector(self.ABC_TAG, 1.0 / (rho * c)))
 
-        coords = ops.dof_coords().T
-        lo = mesh.vertices.min(axis=0)
-        hi = mesh.vertices.max(axis=0)
-        if center is None:
-            center = (hi + lo) / 2.0
-        # delays use the wave speed of the cells adjacent to the aperture
-        # (the fluid the bowl sits in), not a global mean
-        src_cells = ops.facet_data(self.SOURCE_TAG)[2]
-        c_src = float(np.mean(c[src_cells])) if len(src_cells) else float(np.mean(c))
-        mask, tau = bowl_delays(coords, center, aperture_radius, focal_distance, c_src)
-        w0 = self.w0
-        # phase-split facet vectors with per-cell material coefficients
-        # (1/ρ and δ/ρc²; the reference keeps these DG-0 inside the facet
-        # forms, _lossy.py:107-128)
-        for name, coeff in [("", 1.0 / rho), ("_d", delta / (rho * c * c))]:
-            self.consts[f"src_cos{name}"] = ops.to_device(ops.facet_vector_nodal(
-                self.SOURCE_TAG, mask * np.cos(w0 * tau), cell_coeff=coeff
-            ))
-            self.consts[f"src_sin{name}"] = ops.to_device(ops.facet_vector_nodal(
-                self.SOURCE_TAG, mask * np.sin(w0 * tau), cell_coeff=coeff
-            ))
+        with span("fus.setup.source"):
+            coords = ops.dof_coords().T
+            lo = mesh.vertices.min(axis=0)
+            hi = mesh.vertices.max(axis=0)
+            if center is None:
+                center = (hi + lo) / 2.0
+            # delays use the wave speed of the cells adjacent to the aperture
+            # (the fluid the bowl sits in), not a global mean
+            src_cells = ops.facet_data(self.SOURCE_TAG)[2]
+            c_src = float(np.mean(c[src_cells])) if len(src_cells) else float(np.mean(c))
+            mask, tau = bowl_delays(coords, center, aperture_radius, focal_distance, c_src)
+            w0 = self.w0
+            # phase-split facet vectors with per-cell material coefficients
+            # (1/ρ and δ/ρc²; the reference keeps these DG-0 inside the facet
+            # forms, _lossy.py:107-128)
+            for name, coeff in [("", 1.0 / rho), ("_d", delta / (rho * c * c))]:
+                self.consts[f"src_cos{name}"] = ops.to_device(ops.facet_vector_nodal(
+                    self.SOURCE_TAG, mask * np.cos(w0 * tau), cell_coeff=coeff
+                ))
+                self.consts[f"src_sin{name}"] = ops.to_device(ops.facet_vector_nodal(
+                    self.SOURCE_TAG, mask * np.sin(w0 * tau), cell_coeff=coeff
+                ))
         self._build()
 
     @staticmethod

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis.timing import span
 from ..ops.cg import cg_solve
 from ..ops.quadrature_ops import QuadratureOperators
 from .base import ExplicitModelBase, ImplicitModelBase, _cellwise, source_amplitudes
@@ -51,7 +52,8 @@ class LinearExplicit(ExplicitModelBase):
         self.mass_coeff = ops.to_device(1.0 / (rho * c * c))
         self.stiff_coeff = ops.to_device(1.0 / rho)
         self.mdiag_inv = 1.0 / self.qops.mass_diag(1.0 / (rho * c * c))
-        self.src_vec = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
+        with span("fus.setup.source"):
+            self.src_vec = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
         self.abc_diag = ops.to_device(ops.facet_vector(self.ABC_TAG, 1.0 / (rho * c)))
         self._build()
 
@@ -94,7 +96,8 @@ class LinearSpectralExplicit(ExplicitModelBase):
         # (float64, host) is what the slab decomposition packs per rank
         self.raw_stiff = {"coeff_u": 1.0 / rho}
         self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
-        self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
+        with span("fus.setup.source"):
+            self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
         self.consts["abc_diag"] = ops.to_device(ops.facet_vector(self.ABC_TAG, 1.0 / (rho * c)))
         self._build()
 
@@ -140,7 +143,8 @@ class LinearSpectralImplicit(ImplicitModelBase):
         self.raw_stiff = {"coeff_u": 1.0 / rho}
         self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
         self.consts["kdiag"] = ops.stiffness_diag(1.0 / rho)
-        self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
+        with span("fus.setup.source"):
+            self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
         self.consts["abc_diag"] = ops.to_device(ops.facet_vector(self.ABC_TAG, 1.0 / (rho * c)))
 
     @staticmethod

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis.timing import span
 from .base import ExplicitModelBase, _cellwise, source_amplitudes
 
 
@@ -47,10 +48,11 @@ class WesterveltSpectralExplicit(ExplicitModelBase):
         self.raw_stiff = {"coeff_u": 1.0 / rho, "coeff_v": delta / (rho * c * c)}
         self.consts["coeff_u"] = ops.stiff_coeff(1.0 / rho)
         self.consts["coeff_v"] = ops.stiff_coeff(delta / (rho * c * c))
-        self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
-        self.consts["src_vec_d"] = ops.to_device(
-            ops.facet_vector(self.SOURCE_TAG, delta / (rho * c * c))
-        )
+        with span("fus.setup.source"):
+            self.consts["src_vec"] = ops.to_device(ops.facet_vector(self.SOURCE_TAG, 1.0 / rho))
+            self.consts["src_vec_d"] = ops.to_device(
+                ops.facet_vector(self.SOURCE_TAG, delta / (rho * c * c))
+            )
         self.consts["abc_diag"] = ops.to_device(ops.facet_vector(self.ABC_TAG, 1.0 / (rho * c)))
         self._build()
 

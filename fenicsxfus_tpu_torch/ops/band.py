@@ -37,6 +37,8 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis.timing import span
+
 
 def band_gather_rows(t: torch.Tensor, blocks, p: int) -> torch.Tensor:
     """Slab lattice rows [slab_x, G1, G2] → the slab's cells [nb, N, N, N]
@@ -101,8 +103,11 @@ def band_correction_rows(rows, coeffs, G: torch.Tensor, D: torch.Tensor, blocks,
     same rows."""
     N = p + 1
     z = None
-    for t, cb in zip(rows, coeffs):
-        zc = band_gather_rows(t, blocks, p) * cb.view(*blocks, 1, 1, 1)
-        z = zc if z is None else z + zc
-    yc = stiffness_cells(D, G, z.reshape(-1, N, N, N))
-    return band_scatter_rows(yc, blocks, p)
+    with span("fus.band.gather"):
+        for t, cb in zip(rows, coeffs):
+            zc = band_gather_rows(t, blocks, p) * cb.view(*blocks, 1, 1, 1)
+            z = zc if z is None else z + zc
+    with span("fus.band.cells"):
+        yc = stiffness_cells(D, G, z.reshape(-1, N, N, N))
+    with span("fus.band.scatter"):
+        return band_scatter_rows(yc, blocks, p)

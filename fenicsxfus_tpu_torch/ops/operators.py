@@ -55,11 +55,11 @@ from __future__ import annotations
 
 import copy
 import os
-import time
 
 import numpy as np
 import torch
 
+from ..analysis.timing import span, traced
 from ..core.geometry import SYM_PAIRS, facet_factors, is_uniform_mesh, volume_factors
 from ..core.gll import diff_matrix
 from ..core.mesh import Mesh
@@ -100,8 +100,7 @@ class SEMOperators:
     ``nb`` cells, their ``blocks`` per axis, ``slab_x`` lattice rows, the
     correction factors ``G_corr`` [6, nb, N, N, N] on the device and, on
     the host, the same factors ``G_corr_np`` in float64 and the mass
-    correction ``wdetJ_corr_np`` [nb, N**3]. ``setup_seconds`` holds the
-    host time of the setup's parts (hybrid and general).
+    correction ``wdetJ_corr_np`` [nb, N**3].
 
     ``stiffness_fn`` is the 3D stiffness function ``(xs, Fs, p) -> y``:
     ``ops.stiffness.stiffness_apply``, the K1 wrapper, unless ``plain()``
@@ -110,12 +109,12 @@ class SEMOperators:
 
     stiffness_fn = staticmethod(stiffness_apply)
 
+    @traced("fus.setup.operators")
     def __init__(self, mesh, degree: int, dtype=torch.float32, device="cuda"):
         self.mesh = mesh
         self.degree = degree
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.setup_seconds = {}
         self.space = build_space(mesh, degree)
         d, N = mesh.dim, self.space.N
         self.d, self.N = d, N
@@ -134,9 +133,7 @@ class SEMOperators:
               and mesh.uniform_box is not None and os.environ.get("FUS_HYBRID", "") != "0"):
             self._setup_hybrid(int(mesh.blend_layers))
         else:
-            t0 = time.perf_counter()
             self._compute_geom()
-            self.setup_seconds["volume_factors"] = time.perf_counter() - t0
         if self.lattice is not None:
             self.gdims = self.lattice.gdims
         self._facet_cache: dict[int, tuple] = {}
@@ -188,13 +185,10 @@ class SEMOperators:
         bx = min(blend_layers, gs[0])
         blocks = (bx,) + tuple(gs[1:])
         nb = int(np.prod(blocks))  # slab cells are the first nb cells
-        t0 = time.perf_counter()
         sub = Mesh(dim=d, vertices=mesh.vertices, cells=mesh.cells[:nb])
         wdetJ_b, G_b = volume_factors(sub, N)  # [nb, N**3], [nb, N**3, 6]
         wdetJ_u, G_u = volume_factors(_one_cell(lo_u, h), N)  # [1, ...]
-        self.setup_seconds["volume_factors"] = time.perf_counter() - t0
         G_corr = np.moveaxis(G_b - G_u, -1, 0).reshape((6, nb) + (N,) * d)
-        t0 = time.perf_counter()
         self.hybrid = {
             "bx": bx,
             "nb": nb,
@@ -204,11 +198,11 @@ class SEMOperators:
             "G_corr_np": G_corr,
             "wdetJ_corr_np": wdetJ_b - wdetJ_u,
         }
-        self.setup_seconds["upload"] = time.perf_counter() - t0
 
     def to_device(self, arr) -> torch.Tensor:
         """A host array as a tensor of the operator dtype on its device."""
-        return torch.as_tensor(np.asarray(arr), dtype=self.dtype, device=self.device)
+        with span("fus.setup.upload", sync=self.device):
+            return torch.as_tensor(np.asarray(arr), dtype=self.dtype, device=self.device)
 
     # -------------------------------------------------------- diagonal (mass)
 
@@ -295,6 +289,7 @@ class SEMOperators:
             "hyb_G": self.hybrid["G_corr"],
         }
 
+    @traced("fus.band")
     def band_correction_rows(self, rows, band_coeffs, G) -> torch.Tensor:
         """The slab correction K6 (``ops/band.py``) of the fields' slab rows
         ``rows`` [slab_x, G1, G2] with the slab coefficients ``band_coeffs``

@@ -176,7 +176,6 @@ class LocalUnstructuredOps(SEMOperators):
         tables."""
         self = object.__new__(cls)
         self.mesh, self.degree, self.dtype, self.device = None, degree, dtype, device
-        self.setup_seconds = {}
         self.d, self.N = mesh.dim, degree + 1
         self.ndofs, self.num_cells = int(ndofs), len(cells)
         self.hybrid = self.lattice = self.gdims = None

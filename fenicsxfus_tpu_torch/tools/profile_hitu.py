@@ -26,6 +26,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+from fenicsxfus_tpu_torch.analysis import timing  # noqa: E402
 from fenicsxfus_tpu_torch.drivers import hitu  # noqa: E402
 from fenicsxfus_tpu_torch.ops.stage import stage_apply  # noqa: E402
 from fenicsxfus_tpu_torch.ops.stage_ab import stage_a_apply, stage_b_apply  # noqa: E402
@@ -39,13 +40,12 @@ def main() -> None:
     bowl = "--bowl" in sys.argv[1:]
     t0 = time.perf_counter()
     build = hitu.build_bowl_model if bowl else hitu.build_model
-    model, _, dt, _ = build("W", "H101", "WATER", 80, f0=0.5e6, device=dev)
+    with timing.tracing():
+        model, _, dt, _ = build("W", "H101", "WATER", 80, f0=0.5e6, device=dev)
     torch.cuda.synchronize()
     print(f"setup {time.perf_counter() - t0:.2f} s, {model.number_of_dofs()} DOF, dt {dt:.6e} s",
           flush=True)
-    if bowl:
-        print("setup split (host s): "
-              + ", ".join(f"{k} {v:.2f}" for k, v in model.ops.setup_seconds.items()), flush=True)
+    print(timing.list_timings(), flush=True)
     pts = hitu.axial_points("H101")
     # past the source ramp, so no value is trivial
     model.rk_record(0.0, 400 * dt, pts)

@@ -1,6 +1,6 @@
 """Utility functions (port of ``fenicsxfus_tpu/utils.py``, reference
 ``python/src/fenicsxfus/utils.py``): the device resolution of the port's
-entry points, the diffusivity of sound, the point location of sensors on
+entry points and the card's context (``init_device``), the diffusivity of sound, the point location of sensors on
 deformed cells (``compute_eval_params``), the evaluation of a field at
 points (``eval_function``) and the spectral stable time step
 (``estimate_stable_dt``)."""
@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .analysis.timing import span, traced
 
 
 def resolve_device(device) -> torch.device:
@@ -24,6 +26,15 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def init_device(device) -> None:
+    """Make the CUDA context of a card here (span ``fus.setup.context``),
+    so that the set-up's uploads are copies only; nothing on the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        with span("fus.setup.context", sync=dev):
+            torch.zeros(1, device=dev)
 
 
 def compute_diffusivity_of_sound(frequency: float, speed: float, attenuationdB: float) -> float:
@@ -113,6 +124,7 @@ def eval_function(ops, u, points: np.ndarray):
     return pts, vals
 
 
+@traced("fus.setup.stable_dt")
 def estimate_stable_dt(ops, c0, rho0, rk_order: int = 4, safety: float = 0.85,
                        iters: int = 40, seed: int = 0) -> float:
     """Spectral-radius-based stable time step for the explicit wave solvers.

@@ -192,8 +192,8 @@ def test_small_bowl_run_matches_jax():
     res = hitu.run("W", "H101", "WATER", dtype=torch.float64, device="cpu", bowl=True, **kw)
     model = res.model
     assert model.step_kind == "fused" and model.ops.hybrid is not None
-    assert set(res.setup_split) == {"mesh", "volume_factors", "upload", "model",
-                                    "estimate_stable_dt"}
+    assert set(res.setup_split) == {"library", "mesh", "context", "operators", "assembly",
+                                    "source", "upload", "stable_dt", "other"}
     np.testing.assert_array_equal(res.x, x_ref)
     assert np.max(np.abs(res.amplitude - amp_ref)) < 1e-10 * np.max(np.abs(amp_ref))
 
