@@ -267,7 +267,8 @@ each ending in ``torch.cuda.synchronize()``; any failure raises:
    and against the general kernel (p and tile at run time) bit for bit, on
    [14a]'s (9,5,7) and ragged (13,11,17) and on a lattice of two whole
    tiles and a cut one; (b) each at its run's shape where a run of the port
-   launches it at full size (PH1 SC2-BM7's lattice at p = 5,
+   launches it at full size (PH1 SC2-BM7's lattice at p = 5, the HITU
+   lattice at p = 6 for fp32 K2 of every kind and its band,
    ``operator_speed``'s at p = 2, 3, 5, 6, the headline and the HITU
    lattice for fp64 K1, ``bowl_convergence``'s nx = 36 for the fp64 band),
    held and timed beside the general kernel on the same operands, its
@@ -1404,7 +1405,8 @@ def phase_wave(device, card, k2_peak: float) -> dict:
 
 # ------------------------------------------------- [13] the bowl-fitted mesh
 
-BOWL_BAND_ROWS = 65  # slab_x of drivers.hitu's default bowl mesh: 16 blend layers at p = 4
+BOWL_BAND_LAYERS = 16  # blend layers of drivers.hitu's default bowl mesh (nx = 80)
+BOWL_BAND_ROWS = BOWL_BAND_LAYERS * 4 + 1  # its slab_x at p = 4
 BOWL_REF = "w_h101_water_bowlmesh_fused.npz"  # the JAX package's fused bowl run (dt 9.43e-9)
 BOWL_REF_DT = "w_h101_water_bowlmesh.npz"  # its bowl run at drivers.hitu's dt, 1.887e-8
 ONEIL_BOWL_REF = "oneil_bowlmesh_h101_nx64.npz"
@@ -4720,10 +4722,15 @@ def phase_split(device, card, side: SideJobs) -> dict:
 TILE_CELL_MM = 1e-3
 TILE_RUN_STEPS = 2
 # the run shapes of the compiled tiles that a run of the port launches at
-# full size (cells; K2+band with a 65-row band): timed there beside the
-# general kernel; every other compiled tile is timed on MID_NODES_SIDE³ nodes
+# full size (cells; K2+band with the bowl's band, BOWL_BAND_LAYERS cells
+# deep): timed there beside the general kernel; every other compiled tile is
+# timed on MID_NODES_SIDE³ nodes
 RUN_CELLS = {
     ("K2", "float32", 5, "focused"): ((80, 47, 47), "PH1 SC2-BM7 [17d]"),
+    ("K2", "float32", 6, "focused"): ((80, 47, 47), "HITU W-H101-WATER at p = 6, flat"),
+    ("K2+band", "float32", 6, "westervelt"): ((80, 47, 47), "HITU W-H101-WATER at p = 6, bowl"),
+    **{("K2", "float32", 6, kind): ((80, 47, 47), "the HITU lattice at p = 6")
+       for kind in ("linear", "lossy", "westervelt")},
     ("K1", "float64", 4, 1): ((HEADLINE_NX,) * 3, "the implicit headline's CG [14]"),
     ("K1", "float64", 4, 2): ((80, 47, 47), "the HITU lattice's lossy CG and adaptive slopes [14]"),
     ("K2+band", "float64", 4, "westervelt"): ((36, 21, 21), "bowl_convergence nx = 36 [19i]"),
@@ -4753,7 +4760,9 @@ def tile_source(name: str) -> str:
         return "stiffness.cu" if fam == "K1" else ("stage_f64.cu" if f64 else "stage.cu")
     if fam == "K1":
         return "stiffness_tiles_f64.cu" if f64 else "stiffness_tiles_f32.cu"
-    return f"stage_tiles_f64_p{p}.cu" if f64 else "stage_tiles_f32.cu"
+    if not f64 and p == 5:
+        return "stage_tiles_f32.cu"
+    return f"stage_tiles_{'f64' if f64 else 'f32'}_p{p}.cu"
 
 
 def tile_mangled(name: str) -> str:
@@ -4814,8 +4823,9 @@ def _tile_operands(key, lat, device, gen, rng, scale, dg0):
     args["dense"] = [d.to(dt) for d in args["dense"]]
     args["facets"] = [{k: v.to(dt) for k, v in f.items()} for f in args["facets"]]
     if fam == "K2+band":
-        args["band"] = torch.randn((min(BOWL_BAND_ROWS, lat.gdims[0]), *lat.gdims[1:]),
-                                   generator=gen, device=device, dtype=dt)
+        rows = min(BOWL_BAND_LAYERS * p + 1, lat.gdims[0])
+        args["band"] = torch.randn((rows, *lat.gdims[1:]), generator=gen, device=device,
+                                   dtype=dt)
     return (lambda: stage.stage_apply(**args), lambda: stage.stage_plain(**args),
             stage_floor(args, "K2"))
 

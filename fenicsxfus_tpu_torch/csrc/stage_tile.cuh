@@ -1,8 +1,9 @@
 // K2's kernels and their launch (the design is stage.cu's), one template for
 // both types and every tile shape: stage.cu compiles the fp32 general and
 // main-tile kernels, stage_f64.cu the fp64 general ones, and
-// stage_tiles_f32.cu, stage_tiles_f64_p4.cu and stage_tiles_f64_p5.cu the
-// compiled tiles of tiles.cuh, so that they build in parallel.
+// stage_tiles_f32.cu (p = 5), stage_tiles_f32_p6.cu, stage_tiles_f64_p4.cu and
+// stage_tiles_f64_p5.cu the compiled tiles of tiles.cuh, so that they build
+// in parallel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -179,6 +180,7 @@ cudaError_t launch_stage_shape(const K2Launch<T>& k) {
 #define FUS_K2_DECLARE(TYPE, PD, KIND, BAND, T1D, T2D) \
   cudaError_t k2_##TYPE##_p##PD##_##KIND##_b##BAND(const K2Launch<TYPE>& k);
 FUS_K2_TILES_F32(FUS_K2_DECLARE)
+FUS_K2_TILES_F32_P6(FUS_K2_DECLARE)
 FUS_K2_TILES_F64_P4(FUS_K2_DECLARE)
 FUS_K2_TILES_F64_P5(FUS_K2_DECLARE)
 #undef FUS_K2_DECLARE
@@ -195,6 +197,7 @@ bool launch_stage_compiled(int p, bool band, const K2Launch<T>& k, cudaError_t& 
     }                                                                             \
   }
   FUS_K2_TILES_F32(FUS_K2_TRY)
+  FUS_K2_TILES_F32_P6(FUS_K2_TRY)
   FUS_K2_TILES_F64_P4(FUS_K2_TRY)
   FUS_K2_TILES_F64_P5(FUS_K2_TRY)
 #undef FUS_K2_TRY

@@ -46,15 +46,23 @@
   X(double, 6, 1, 12, 12) \
   X(double, 6, 2, 6, 12)
 
-// K2, stage_tiles_f32.cu, stage_tiles_f64_p4.cu and stage_tiles_f64_p5.cu:
-// X(type, degree, kind, band, t1, t2); band 1 is stage_band_kernel (the
-// hybrid lattice's band operand), 0 stage_tile_kernel
+// K2, stage_tiles_f32.cu (p = 5), stage_tiles_f32_p6.cu, stage_tiles_f64_p4.cu
+// and stage_tiles_f64_p5.cu: X(type, degree, kind, band, t1, t2); band 1 is
+// stage_band_fixed_kernel (the hybrid lattice's band operand), 0
+// stage_fixed_kernel
 #define FUS_K2_TILES_F32(X) \
   X(float, 5, kFocused, 0, 10, 15) \
   X(float, 5, kLinear, 0, 10, 20) \
   X(float, 5, kLossy, 0, 10, 15) \
   X(float, 5, kWestervelt, 0, 10, 15) \
   X(float, 5, kWestervelt, 1, 10, 15)
+
+#define FUS_K2_TILES_F32_P6(X) \
+  X(float, 6, kFocused, 0, 12, 12) \
+  X(float, 6, kLinear, 0, 12, 12) \
+  X(float, 6, kLossy, 0, 12, 12) \
+  X(float, 6, kWestervelt, 0, 12, 12) \
+  X(float, 6, kWestervelt, 1, 12, 12)
 
 #define FUS_K2_TILES_F64_P4(X) \
   X(double, 4, kFocused, 0, 12, 12) \

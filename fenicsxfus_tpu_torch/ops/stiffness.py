@@ -178,11 +178,12 @@ KIND_RAW = {1: 3, 2: 4}
 _F32, _F64 = "float32", "float64"
 # the entries of csrc/tiles.cuh: ("K1", type, p, fields) and ("K2" or
 # "K2+band", type, p, kind)
+_K2_DEGREES = ((_F32, 5), (_F32, 6), (_F64, 4), (_F64, 5))  # K2's lists, by (type, p)
 COMPILED_TILES = frozenset(
     [("K1", _F32, p, nf) for p in (2, 3, 5, 6) for nf in (1, 2)]
     + [("K1", _F64, p, nf) for p in (2, 3, 4, 5, 6) for nf in (1, 2)]
-    + [("K2", dt, p, kind) for dt, p in ((_F32, 5), (_F64, 4), (_F64, 5)) for kind in KIND_FIELDS]
-    + [("K2+band", dt, p, "westervelt") for dt, p in ((_F32, 5), (_F64, 4), (_F64, 5))])
+    + [("K2", dt, p, kind) for dt, p in _K2_DEGREES for kind in KIND_FIELDS]
+    + [("K2+band", dt, p, "westervelt") for dt, p in _K2_DEGREES])
 
 
 def halo_factor(t1: int, t2: int, p: int) -> float:

@@ -11,7 +11,8 @@ this one, or an unpacked ``git archive`` of the parent) at the shapes of the
 compiled tiles of ``csrc/tiles.cuh`` (``GENERAL_SHAPES``: PH1 SC2-BM7's K2
 ``focused`` at p = 5, the headline's fp64 K1, HITU's two-field fp64 K1,
 ``operator_speed``'s fp32 K1 at p = 2, 3, 5, 6, the fp64 K2 band stage of
-``bowl_convergence`` at nx = 36), on operands seeded the same in every tree:
+``bowl_convergence`` at nx = 36, HITU's fp32 K2 ``focused`` and band stage
+at p = 6), on operands seeded the same in every tree:
 per shape three medians of 10 launches (CUDA events), the device's time
 alone (``variants.device_ms``), the kernel each launch took where the tree
 counts it, and the SHA-256 of the output, so that two trees run in turns
@@ -101,7 +102,13 @@ GENERAL_SHAPES = [
     ("operator_speed K1 p=6", "K1", "float32", 6, (56, 56, 56), 1, False),
     ("bowl_convergence nx=36 K2+band westervelt fp64", "K2+band", "float64", 4, (36, 21, 21),
      "westervelt", False),
+    ("HITU flat K2 focused p=6", "K2", "float32", 6, (80, 47, 47), "focused", False),
+    ("HITU bowl K2+band westervelt p=6", "K2+band", "float32", 6, (80, 47, 47), "westervelt",
+     False),
 ]
+# the bowl mesh's slab along x in cells (drivers/hitu.py, nx = 80): its band has
+# BAND_LAYERS * p + 1 rows
+BAND_LAYERS = 16
 
 
 def measure_general() -> None:
@@ -159,8 +166,8 @@ def measure_general() -> None:
                         facets=facets, scal=[0.3, 0.05] + [1.7, -0.6, 0.9, 0.4][: nfa - 1],
                         p=p, final=False)
             if kernel == "K2+band":
-                args["band"] = torch.randn((65, gd[1], gd[2]), generator=gen, device=dev,
-                                           dtype=dt)
+                args["band"] = torch.randn((BAND_LAYERS * p + 1, gd[1], gd[2]), generator=gen,
+                                           device=dev, dtype=dt)
 
             def fn():
                 return stage_apply(**args)

@@ -387,6 +387,10 @@ RUNS = [
     (4, torch.float64, ("K2", "lossy"), (321, 189, 189)),
     (4, torch.float64, ("K2", "westervelt"), (321, 189, 189)),
     (4, torch.float64, ("K2", "focused"), (321, 189, 189)),
+    # drivers/hitu.py W-H101-WATER at its published p = 6 (nx = 80, 0.5 MHz):
+    # the flat aperture's focused K2 and the bowl-fitted mesh's K2 + band
+    (6, torch.float32, ("K2", "focused"), (481, 283, 283)),
+    (6, torch.float32, ("K2+band", "westervelt"), (481, 283, 283)),
     # examples/sharded_planewave3d.py (nx = 16, p = 3): K1 in its unfused step
     (3, torch.float32, ("K1", 1), (49, 49, 49)),
     (3, torch.float64, ("K1", 1), (49, 49, 49)),
