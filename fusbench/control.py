@@ -22,23 +22,22 @@ import sys
 import numpy as np
 import torch
 
-from fusbench import cell, check, start
+from fusbench import cell, check
 from fusbench.run import axial_points
 
 
 def control_readings(c: dict, seeds, device) -> list[dict]:
     """The control's readings on period 0 of each seed's window."""
     config, traffic = c["config"], c["traffic"]
-    from fusbench.reference.model import ReferenceModel
-
-    ref = ReferenceModel(config, traffic, device)
-    ctl = ReferenceModel(config, traffic, device, tf32=True)
+    refs = cell.reference_side(config["entry"])
+    ref = refs.Reference(config, traffic, device)
+    ctl = refs.Reference(config, traffic, device, tf32=True)
     points = axial_points(config)
     sensors = ref.disc.locate(points)
     gdims, T = ref.disc.gdims, 1.0 / config["f0"]
     out = []
     for seed in seeds:
-        u, v, t0 = start.start_state(config, traffic, gdims, device, torch.float32, seed)
+        u, v, t0 = refs.start_state(config, traffic, gdims, device, torch.float32, seed)
         uc, vc, traces = ctl.march(u.clone(), v.clone(), t0, t0 + T, sensors)
         res = check.check_periods(ref, [(0, t0, t0 + T, (u, v), traces, (uc, vc))], sensors)
         limits = {n: traffic["limits"][n] for n in res["worst"]}

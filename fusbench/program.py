@@ -1,7 +1,10 @@
-"""The system under test: the port's models, built through the entries of
-its ``drivers/`` modules from a cell's configuration and traffic files.
-This is the only module of the benchmark that imports the port, and it
-reads nothing but the model, its state and its sensor traces.
+"""The system under test: the defaults of an entry's program side, over the
+port's models. An entry (``entries/<entry>.py``, found by the configuration's
+``entry``) builds the cell's model through the port's ``drivers/`` modules
+and may replace any function here (``cell.PROGRAM_HOOKS``). This module and
+the entries are the only ones of the benchmark that import the port (besides
+``spans.py``'s read of the port's span registry), and they read nothing but
+the model, its state and its sensor traces.
 """
 
 from __future__ import annotations
@@ -25,28 +28,6 @@ def import_port() -> dict:
     _, build_s, _ = _build.build()
     _build.library()
     return {"compiled": build_s > 0.0, "build_s": build_s}
-
-
-def build_model(config: dict, traffic: dict, device):
-    """The cell's model from the port's entry for it: (model, steps a
-    period). ``hitu`` cells: ``drivers/hitu.py::build_model`` (``"mesh": "box"``) or
-    ``build_bowl_model`` (``"bowl"``); ``ph1`` cells: ``drivers/ph1.py::
-    build_model``."""
-    dtype = DTYPES[config["dtype"]]
-    if config["entry"] == "hitu":
-        from fenicsxfus_tpu_torch.drivers import hitu
-
-        build = hitu.build_bowl_model if traffic["mesh"] == "bowl" else hitu.build_model
-        model, _, _, spp = build(*config["variant"], config["nx"], degree=config["degree"],
-                                 f0=config["f0"], cfl=traffic["cfl"], dtype=dtype, device=device)
-    elif config["entry"] == "ph1":
-        from fenicsxfus_tpu_torch.drivers import ph1
-
-        model, _, _, _, spp = ph1.build_model(config["sc"], traffic["bm"], config["nx"],
-                                              dtype=dtype, cfl=traffic["cfl"], device=device)
-    else:
-        raise ValueError(f"unknown entry {config['entry']!r}")
-    return model, spp
 
 
 def lattice_shape(model) -> tuple:

@@ -4,15 +4,17 @@ the card:
     python3 -m fusbench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 Set-up imports the port, loads its CUDA library, builds the cell's model
-through the port's own entry for it (``fusbench.program``), makes the window's start
-from the seed (``fusbench.start``) and warms up on one source period from it.
-The window then marches one period at a time through ``model.rk_record``
-on the cell's axial sensors, each period's traces copied to the host before
-the next starts (one client, closed loop), until ``--seconds`` have passed.
-With ``--trace 1`` a few more periods run under the profiler and the
-per-layer metrics are read from that trace. Then the program's state is
-freed and the plain reference (``fusbench.reference``) checks a sample of
-the window's periods (``fusbench.check``).
+through the program side of the configuration's entry (``entries/<entry>.py``,
+over ``fusbench.program``), makes the window's start from the seed (the
+entry's reference side, by default ``fusbench.start``) and warms up on one
+source period from it. The window then marches one period at a time
+(``march_period``: ``model.rk_record``) on the cell's axial sensors, each
+period's traces copied to the host before the next starts (one client,
+closed loop), until ``--seconds`` have passed. With ``--trace 1`` a few more
+periods run under the profiler and the per-layer metrics are read from that
+trace. Then the program's state is freed and the entry's plain reference
+(``reference/entries/<entry>.py``) checks a sample of the window's periods
+(``fusbench.check``).
 
 The last line on standard output is the result, a JSON object; the numbers
 compared for ``correct`` are the last lines on standard error. Without a
@@ -36,7 +38,7 @@ _T_IMPORT = time.perf_counter()
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from fusbench import bounds, cell, check, program, start, trace  # noqa: E402
+from fusbench import cell, check, program, trace  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "fenicsxfus_tpu")
 BAND_SPAN = "fusbench.band"
@@ -107,6 +109,8 @@ def run_cell(c: dict, seed: int, seconds: float, traced: bool, device) -> dict:
     """One run of the resolved cell ``c`` (``cell.resolve``) on ``device``:
     the result's fields, the checks last."""
     config, traffic = c["config"], c["traffic"]
+    prog = cell.program_side(config["entry"])
+    refs = cell.reference_side(config["entry"])
     device = torch.device(device)
     on_card = device.type == "cuda"
     if config.get("tf32") is False:
@@ -117,29 +121,29 @@ def run_cell(c: dict, seed: int, seconds: float, traced: bool, device) -> dict:
     build = program.import_port()
     import_s = process_age_s()
     t0 = time.perf_counter()
-    model, spp = program.build_model(config, traffic, device)
+    model, spp = prog.build_model(config, traffic, device)
     sync(device)
     model_s = time.perf_counter() - t0
-    gdims = program.lattice_shape(model)
+    gdims = prog.lattice_shape(model)
     ndofs = int(np.prod(gdims))
-    dtype = model.u_n.dtype
+    dtype = prog.state(model)[0].dtype
     points = axial_points(config)
     T = 1.0 / config["f0"]
-    u, v, t_s = start.start_state(config, traffic, gdims, device, dtype, seed)
-    program.set_state(model, u, v)
+    u, v, t_s = refs.start_state(config, traffic, gdims, device, dtype, seed)
+    prog.set_state(model, u, v)
     del u, v
     t1 = time.perf_counter()
-    program.march_period(model, t_s, t_s + T, points).cpu()
+    prog.march_period(model, t_s, t_s + T, points).cpu()
     warm_s = time.perf_counter() - t1
-    program.set_state(model, None, None)  # the warm state goes before the start is made again
-    u, v, _ = start.start_state(config, traffic, gdims, device, dtype, seed)
-    program.set_state(model, u, v)
+    prog.set_state(model, None, None)  # the warm state goes before the start is made again
+    u, v, _ = refs.start_state(config, traffic, gdims, device, dtype, seed)
+    prog.set_state(model, u, v)
     del u, v
     # host buffers for the window's three state snapshots, made here (pinned on a
     # card) so that a snapshot in the window is one device-to-host copy and
     # allocates nothing
     snap_bufs = [tuple(torch.empty(x.shape, dtype=x.dtype, pin_memory=on_card)
-                       for x in program.state(model)) for _ in range(3)]
+                       for x in prog.state(model)) for _ in range(3)]
     sync(device)
     setup_s = process_age_s()
 
@@ -155,11 +159,11 @@ def run_cell(c: dict, seed: int, seconds: float, traced: bool, device) -> dict:
     while True:
         if k in snap_at:
             ts = time.perf_counter()
-            snaps[k] = snapshot(snap_bufs[len(snaps)], program.state(model))
+            snaps[k] = snapshot(snap_bufs[len(snaps)], prog.state(model))
             snap_s += time.perf_counter() - ts
         t_k = t_s + k * T
         tic = time.perf_counter()
-        ys = program.march_period(model, t_k, t_k + T, points).cpu()
+        ys = prog.march_period(model, t_k, t_k + T, points).cpu()
         toc = time.perf_counter()
         latency.append(toc - tic)
         traces.append(ys)
@@ -182,7 +186,7 @@ def run_cell(c: dict, seed: int, seconds: float, traced: bool, device) -> dict:
                     return fn(*a, **kw)
             return inner
 
-        program.wrap_band(model, spanned)
+        prog.wrap_band(model, spanned)
 
         def named(name, fn):
             def inner(*a, **kw):
@@ -190,17 +194,17 @@ def run_cell(c: dict, seed: int, seconds: float, traced: bool, device) -> dict:
                     return fn(*a, **kw)
             return inner
 
-        program.wrap_plan(model, named)
+        prog.wrap_plan(model, named)
         n_tr = int(traffic["trace_periods"])
 
         def traced_periods():
             for i in range(n_tr):
                 t_i = t_s + (periods + i) * T
-                program.march_period(model, t_i, t_i + T, points).cpu()
+                prog.march_period(model, t_i, t_i + T, points).cpu()
 
         tr = trace.profile(traced_periods, span_names=(BAND_SPAN, *PLAN_SPANS))
         tr["steps"] = n_tr * spp
-    slab, degree = program.slab_cells(model), int(model.degree)
+    slab, degree = prog.slab_cells(model), int(model.degree)
     del model
     gc.collect()
     if on_card:
@@ -208,11 +212,9 @@ def run_cell(c: dict, seed: int, seconds: float, traced: bool, device) -> dict:
 
     # ---- correctness: the reference on a sample of the window's periods
     r0 = time.perf_counter()
-    from fusbench.reference.model import ReferenceModel
-
-    ref = ReferenceModel(config, traffic, device)
+    ref = refs.Reference(config, traffic, device)
     sensors = ref.disc.locate(points)
-    u_s, v_s, _ = start.start_state(config, traffic, gdims, device, dtype, seed)
+    u_s, v_s, _ = refs.start_state(config, traffic, gdims, device, dtype, seed)
     samples = [(0, t_s, t_s + T, (u_s.cpu(), v_s.cpu()), traces[0].numpy(), snaps.get(1))]
     del u_s, v_s
     if later < periods and later in snaps:
@@ -233,7 +235,7 @@ def run_cell(c: dict, seed: int, seconds: float, traced: bool, device) -> dict:
     del ref
 
     # ---- metrics
-    floor = bounds.step_floor(gdims, degree, torch.finfo(dtype).bits // 8, slab)
+    floor = refs.step_floor(gdims, degree, torch.finfo(dtype).bits // 8, slab)
     metrics = {}
     dev = card_info(device)
     dev["memory_peak_bytes"] = int(memory_peak)
